@@ -1,0 +1,28 @@
+"""linkpred_tpu_torch — the PyTorch/CUDA port of linkpred_tpu.
+
+Neighbourhood link prediction (IHub/LHub, nine similarity metrics) on an
+NVIDIA H100, held against the JAX package ``linkpred_tpu``, which stays the
+reference.  It imports torch and numpy, never jax.
+
+Layout (module paths mirror the reference's):
+  graph      — CSR graph (NumPy leaves; ``to(device)`` for tensors)
+  convert    — the reference's graph/plan arrays into the port's types
+  io         — ctypes loader of the native C++ plan helpers
+  ops        — transforms, batch updates, segmented scans, top-k, and the
+               modules of the two CUDA kernels (fused_tail, compact)
+  kernels    — the CUDA C++ sources (``csrc/``) and their nvcc builder
+  predict    — metrics, host plan, scoring engine, public API
+  bench      — synthetic graphs
+  utils      — device memory budgets, timing
+"""
+
+from .graph import CSRGraph, from_edges
+from .predict.api import (PlanCache, PredictOptions, PredictResult,
+                          predict_links, predict_links_multi)
+from .predict.metrics import METRICS, get_metric
+
+__all__ = [
+    "predict_links", "predict_links_multi", "PredictOptions",
+    "PredictResult", "PlanCache", "CSRGraph", "from_edges", "METRICS",
+    "get_metric",
+]

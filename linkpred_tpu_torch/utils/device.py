@@ -1,0 +1,36 @@
+"""Device memory budgets derived from the target device's memory.
+
+Counterpart of ``linkpred_tpu/utils/device.py``.  The fractions below are the
+reference's starting values; they have not been re-derived on a GPU yet.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["hbm_bytes", "auto_slot_budget", "auto_seg_lanes"]
+
+# Budget basis for a CPU device: the reference's 16 GiB default, so a plan
+# built for the CPU equals the reference's CPU plan field for field.
+_DEFAULT_BYTES = 16 << 30
+
+
+def hbm_bytes(device) -> int:
+    """Memory of ``device`` in bytes: the card's total memory for a CUDA
+    device, the reference's 16 GiB default for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1])
+    if device.type == "cpu":
+        return _DEFAULT_BYTES
+    raise ValueError(f"unsupported device {device}")
+
+
+def auto_slot_budget(device) -> int:
+    """Packed-slot-stream ceiling: ~55% of device memory at 12 B/slot."""
+    return min(int(hbm_bytes(device) * 0.55) // 12, (1 << 31) - (1 << 22))
+
+
+def auto_seg_lanes(device) -> int:
+    """Deferred-selection raw-buffer bound: ~20% of device memory at
+    12 B/lane (one metric's key + u + v)."""
+    return min(int(hbm_bytes(device) * 0.20) // 12, 1 << 29)
