@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of linkpred_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels, checks each against its plain PyTorch twin, checks the port end to
-end against the CPU and a dense oracle, and drives the main path
-(``predict_links``, LHub Jaccard at deg 64, k = half the removed edges) on
-an RMAT-19 graph at the bench protocol.
+end against the CPU and a dense oracle (packed and edge-stream plans,
+serving mode, the mega-hub host scorer), and drives the two main paths at
+the bench protocol:
+
+* LHub (phase 5): ``predict_links`` Jaccard at deg 64 on RMAT-19, the
+  packed slot stream;
+* IHub (phase 6): ``predict_links`` Jaccard at ``min_degree1=0`` on
+  RMAT-18 with the card's own budgets: the edge stream (K1's killer branch,
+  selection by segment) plus the packed hub sub-plan.
 
     python3 chip_smoke.py [scale]
 
-``scale`` (default 19) sets the R-MAT scale of the main path.  Run from the
+``scale`` (default 19) sets the R-MAT scale of the LHub path.  Run from the
 root of the repository.  Every phase prints its lines and any
 failure raises, so the run exits non-zero.  With no CUDA device, or without
 the package beside the script, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the kernels' JSON record.
+the kernels' JSON record, and the line before that the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -30,7 +37,15 @@ KERNELS = [
      "linkpred_tpu/ops/fused_tail.py:303"),
     ("pack_survivors", "linkpred_tpu_torch/kernels/csrc/compact.cu",
      "linkpred_tpu/ops/compact.py:170"),
+    ("pallas_tail", "linkpred_tpu_torch/kernels/csrc/fused_tail.cu",
+     "experiments/pallas_tail.py:178"),
+    ("affine_smoke", "linkpred_tpu_torch/kernels/csrc/smoke.cu",
+     "experiments/pallas_smoke.py:14"),
 ]
+# The card's memory rate and float32 rate outside the tensor cores
+# (H100 SXM data sheet): the roofline of every kernel here.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 UNWEIGHTED = ["common_neighbors", "jaccard_coefficient", "sorensen_index",
               "salton_cosine_similarity", "hub_promoted", "hub_depressed",
               "leicht_holme_nerman"]
@@ -47,6 +62,22 @@ def card_line() -> str:
                        capture_output=True, text=True, timeout=60)
     check(r.returncode == 0, f"nvidia-smi failed: {r.stderr}")
     return r.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float = 0.0):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the float32 operations over their peak rate.
+    Returns ``dict(bound_ms=..., bound_by="bytes" or "operations")``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def tail_bytes(cap: int, wide: bool, n_metrics: int, n_wt: int) -> int:
+    """K1's bytes: hi, lo, the degree payload and the weights read once;
+    one key per metric, ku and kw written once."""
+    return cap * (8 + (8 if wide else 4) + 4 * n_wt + 4 * n_metrics + 8)
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -66,12 +97,45 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# ------------------------------------------------------ phase 1: P5 smoke
+
+def phase_p5(device, rng):
+    """The toolchain smoke right after the build: P5's probe path (its
+    kernel on the probe's (8, 128) shape), then the kernel against its plain
+    version and 2x + 1 in numpy."""
+    import torch
+    from linkpred_tpu_torch.experiments import pallas_smoke as p5
+
+    x = torch.arange(1024, dtype=torch.int32, device=device).reshape(8, 128)
+    p5.LAUNCHES = 0
+    out = p5.affine_smoke(x)
+    launches = p5.LAUNCHES
+    torch.cuda.synchronize()
+    check(torch.equal(out, p5.affine_smoke_reference(x)), "P5: kernel != plain")
+    check(np.array_equal(out.cpu().numpy(),
+                         np.arange(1024, dtype=np.int32).reshape(8, 128) * 2
+                         + 1), "P5: kernel != 2x + 1")
+    big = rng.integers(-(1 << 31), 1 << 31, 1 << 20).astype(np.int32)
+    got = p5.affine_smoke(torch.as_tensor(big, device=device)).cpu().numpy()
+    check(np.array_equal(got, (big.astype(np.int64) * 2 + 1).astype(np.int32)),
+          "P5: kernel != 2x + 1 (wrapping) on 2^20 lanes")
+    ms = cuda_ms(lambda: p5.affine_smoke(x), 200)
+    plain = cuda_ms(lambda: p5.affine_smoke_reference(x), 200)
+    print(f"  P5 affine_smoke (8, 128) int32: kernel == plain == 2x + 1; "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+                **bound(2 * x.numel() * 4, 2 * x.numel()), library_ms=None)
+
+
 # --------------------------------------------------------------- phase 2: K1
 
-def tail_stream(rng, cap, w_bits, fill, run_len, wide, n_wt):
+def tail_stream(rng, cap, w_bits, fill, run_len, wide, n_wt, kill=0.0):
     """A sorted tile as the main path hands it to K1: (w, u) pairs with
     run_len lanes per pair on average, degrees constant per pair, pad lanes
-    after the real ones."""
+    after the real ones.  With ``kill`` the source payload is the edge
+    stream's ``u << 1 | real``: each run's first lane is a killer, or all
+    its lanes are, with probability ``kill`` each (killers sort first in
+    their run); killer lanes weigh 0."""
     n_real = int(cap * fill)
     nv = 1 << w_bits
     npair = max(n_real // run_len, 1)
@@ -84,8 +148,17 @@ def tail_stream(rng, cap, w_bits, fill, run_len, wide, n_wt):
     w, u, du, dw = (c[order] for c in cols)
     pad = cap - n_real
     lane = np.arange(n_real, cap)
+    real = np.ones(cap, bool)
+    if kill:
+        new = np.r_[True, (np.diff(w) != 0) | (np.diff(u) != 0)]
+        rid = np.cumsum(new) - 1
+        kind = rng.choice(3, int(new.sum()), p=[1 - 2 * kill, kill, kill])
+        real[np.flatnonzero(new)[kind == 1]] = False
+        real[:n_real][kind[rid] == 2] = False
+        real[n_real:] = rng.random(pad) < 0.5
     w = np.concatenate([w, nv | (lane & 1023)]).astype(np.int32)
-    u = np.concatenate([u, np.zeros(pad, np.int64)]).astype(np.int32)
+    u = np.concatenate([u, np.zeros(pad, np.int64)])
+    u = ((u << 1) | real if kill else u).astype(np.int32)
     du = np.concatenate([du, np.ones(pad, np.int64)])
     dw = np.concatenate([dw, np.ones(pad, np.int64)])
     if wide:
@@ -96,68 +169,155 @@ def tail_stream(rng, cap, w_bits, fill, run_len, wide, n_wt):
     for _ in range(n_wt):
         x = (rng.random(cap) + 0.01).astype(np.float32)
         x[n_real:] = 0.0
+        x[~real] = 0.0
         wts.append(x)
     return w, u, degs, wts
+
+
+def k1_vs_twin(name, mets, args, kw):
+    """K1 against its twin on the same card tensors; returns the largest
+    absolute score difference of the weighted metrics."""
+    import torch
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.ops.topk import desc_key_score
+
+    kk, ku, kv = ft.fused_tail(*args, **kw)
+    rk, ru, rv = ft.fused_tail_reference(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(ku, ru) and torch.equal(kv, rv), f"K1 {name}: ku/kw")
+    max_err = 0.0
+    for i, m in enumerate(mets):
+        if not m.needs_weight:
+            check(torch.equal(kk[i], rk[i]),
+                  f"K1 {name}: {m.name} keys not bit-equal")
+            continue
+        a, b = desc_key_score(kk[i]), desc_key_score(rk[i])
+        check(torch.equal(torch.isinf(a), torch.isinf(b)),
+              f"K1 {name}: {m.name} valid lanes differ")
+        fin = torch.isfinite(b)
+        err = (a[fin] - b[fin]).abs()
+        check(bool((err <= 1e-5 * b[fin].abs()).all()),
+              f"K1 {name}: {m.name} beyond rtol 1e-5")
+        max_err = max(max_err, float(err.max()) if err.numel() else 0.0)
+    return kk, max_err
+
+
+def killed_runs_cross_blocks(hi, lo, keys, block=2048):
+    """Check the killer premise on the card's result: some killed runs
+    cross a kernel block with their killer in the earlier block, and no
+    killed run scored.  Returns the count of such runs."""
+    from linkpred_tpu_torch.ops.topk import desc_key_score
+
+    h, l_ = hi.cpu().numpy(), lo.cpu().numpy()
+    start = np.flatnonzero(np.r_[True, (np.diff(h) != 0)
+                                 | (np.diff(l_ >> 1) != 0)])
+    end = np.r_[start[1:], h.shape[0]] - 1
+    dead = (l_[start] & 1) == 0
+    check(bool(np.all(desc_key_score(keys[0]).cpu().numpy()[end[dead]]
+                      == -np.inf)), "K1 killers: a killed run scored")
+    return int((dead & (start // block != end // block)).sum())
 
 
 def phase_k1(device, rng):
     import torch
     from linkpred_tpu_torch.ops import fused_tail as ft
-    from linkpred_tpu_torch.ops.topk import desc_key_score
     from linkpred_tpu_torch.predict.metrics import METRICS
 
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     cap = 1 << 20
     cases = [
-        # name, metrics, wide, min_score, maxf2, run_len, fill
-        ("deg16_all7", UNWEIGHTED, False, 0.0, 0, 4, 0.95),
-        ("wide_pair", UNWEIGHTED, True, 0.0, 0, 4, 0.95),
+        # name, metrics, wide, min_score, maxf2, run_len, fill, killers
+        ("deg16_all7", UNWEIGHTED, False, 0.0, 0, 4, 0.95, 0.0),
+        ("wide_pair", UNWEIGHTED, True, 0.0, 0, 4, 0.95, 0.0),
         ("aa_ra", ["adamic_adar", "resource_allocation"], False, 0.0, 0, 8,
-         0.95),
+         0.95, 0.0),
         ("runs_over_a_block", ["common_neighbors", "adamic_adar"], False,
-         0.0, 0, 5000, 1.0),
+         0.0, 0, 5000, 1.0, 0.0),
         ("min_score", ["jaccard_coefficient", "common_neighbors"], False,
-         0.01, 0, 4, 0.9),
+         0.01, 0, 4, 0.9, 0.0),
         ("maxf2", ["hub_promoted", "resource_allocation"], False, 0.0, 2, 4,
-         0.9),
+         0.9, 0.0),
+        # the edge stream's killer branch
+        ("killers_deg16_all7", UNWEIGHTED, False, 0.0, 0, 4, 0.95, 0.2),
+        ("killers_wide_pair", UNWEIGHTED, True, 0.001, 0, 4, 0.95, 0.2),
+        ("killers_weighted", ["jaccard_coefficient", "adamic_adar",
+                              "resource_allocation"], False, 0.0, 2, 6,
+         0.95, 0.2),
+        ("killers_wide_weighted", ["adamic_adar", "resource_allocation"],
+         True, 0.0, 0, 8, 0.9, 0.2),
+        ("killers_runs_over_a_block", ["common_neighbors", "adamic_adar"],
+         False, 0.0, 0, 5000, 1.0, 0.3),
     ]
     max_err = 0.0
-    for name, names, wide, min_score, maxf2, run_len, fill in cases:
+    for name, names, wide, min_score, maxf2, run_len, fill, kill in cases:
         mets = [METRICS[m] for m in names]
         n_wt = sum(m.needs_weight for m in mets)
-        w, u, degs, wts = tail_stream(rng, cap, 20, fill, run_len, wide, n_wt)
-        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        w, u, degs, wts = tail_stream(rng, cap, 20, fill, run_len, wide, n_wt,
+                                      kill)
         args = (t(w), t(u), [t(d) for d in degs], [t(x) for x in wts],
                 min_score)
-        kw = dict(metrics=mets, w_bits=20, n=1 << 20, maxf2=maxf2)
-        kk, ku, kv = ft.fused_tail(*args, **kw)
-        rk, ru, rv = ft.fused_tail_reference(*args, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(ku, ru) and torch.equal(kv, rv), f"K1 {name}: ku/kw")
-        for i, m in enumerate(mets):
-            if not m.needs_weight:
-                check(torch.equal(kk[i], rk[i]),
-                      f"K1 {name}: {m.name} keys not bit-equal")
-                continue
-            a, b = desc_key_score(kk[i]), desc_key_score(rk[i])
-            check(torch.equal(torch.isinf(a), torch.isinf(b)),
-                  f"K1 {name}: {m.name} valid lanes differ")
-            fin = torch.isfinite(b)
-            err = (a[fin] - b[fin]).abs()
-            check(bool((err <= 1e-5 * b[fin].abs()).all()),
-                  f"K1 {name}: {m.name} beyond rtol 1e-5")
-            max_err = max(max_err, float(err.max()) if err.numel() else 0.0)
-        print(f"  K1 {name}: {len(mets)} metrics, cap {cap}: kernel == twin")
-    # time at the main path's shape: deg16, Jaccard, cap 2^20
-    w, u, degs, wts = tail_stream(rng, cap, 19, 0.97, 3, False, 0)
-    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    args = (t(w), t(u), [t(degs[0])], [], 0.0)
-    kw = dict(metrics=[METRICS["jaccard_coefficient"]], w_bits=19,
-              n=1 << 19, maxf2=0)
-    ms = cuda_ms(lambda: ft.fused_tail(*args, **kw))
-    plain = cuda_ms(lambda: ft.fused_tail_reference(*args, **kw))
-    print(f"  K1 time at cap 2^20, deg16, Jaccard: kernel {ms:.4f} ms, "
-          f"twin {plain:.4f} ms")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain)
+        kw = dict(metrics=mets, w_bits=20, n=1 << 20, maxf2=maxf2,
+                  killers=bool(kill))
+        keys, err = k1_vs_twin(name, mets, args, kw)
+        max_err = max(max_err, err)
+        note = ""
+        if kill:
+            crossing = killed_runs_cross_blocks(args[0], args[1], keys)
+            if run_len > 2048:
+                check(crossing > 0, f"K1 {name}: no killed run crosses a "
+                      "block")
+            note = f", {crossing} killed runs cross a block"
+        print(f"  K1 {name}: {len(mets)} metrics, cap {cap}: kernel == twin"
+              + note)
+
+    out = {}
+    for label, c, w_bits, kill in (("clean", 1 << 20, 19, 0.0),
+                                   ("killers", 1 << 21, 18, 0.1)):
+        # the main paths' shapes: deg16, Jaccard; LHub RMAT-19's packed
+        # tiles (cap 2^20) and IHub RMAT-18's edge tiles (cap 2^21)
+        w, u, degs, _ = tail_stream(rng, c, w_bits, 0.97, 3, False, 0, kill)
+        args = (t(w), t(u), [t(degs[0])], [], 0.0)
+        mets = [METRICS["jaccard_coefficient"]]
+        kw = dict(metrics=mets, w_bits=w_bits, n=1 << w_bits, maxf2=0,
+                  killers=bool(kill))
+        k1_vs_twin(f"{label} timing input", mets, args, kw)
+        ms = cuda_ms(lambda: ft.fused_tail(*args, **kw))
+        plain = cuda_ms(lambda: ft.fused_tail_reference(*args, **kw))
+        b = bound(tail_bytes(c, False, 1, 0), 4 * c)
+        print(f"  K1 time at cap 2^{c.bit_length() - 1}, deg16, Jaccard, "
+              f"{label} (kernel == twin on these inputs): kernel "
+              f"{ms:.4f} ms, twin {plain:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        out[label] = dict(ms=ms, plain_ms=plain, **b)
+    return dict(max_abs_err=max_err, **out["clean"], library_ms=None,
+                killers_cap_2_21=out["killers"])
+
+
+def phase_p1(device, rng):
+    """P1's probe path: K1 at the prototype's configuration (Jaccard,
+    deg16, no weights, no killers, W_BITS 21, 2^21 lanes) through the
+    probe's ``pallas_tail``, bit-equal to the plain copy of its XLA tail."""
+    import torch
+    from linkpred_tpu_torch.experiments import pallas_tail as p1
+    from linkpred_tpu_torch.ops import fused_tail as ft
+
+    hi, lo, dpack = (torch.as_tensor(a, device=device)
+                     for a in p1.make_stream(rng))
+    ft.LAUNCHES = 0
+    got = p1.pallas_tail(hi, lo, dpack, 0.0)
+    launches = ft.LAUNCHES
+    want = p1.xla_tail(hi, lo, dpack, 0.0)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("keys", "ku", "kw")):
+        check(torch.equal(a, b), f"P1: {what} not bit-equal to xla_tail")
+    ms = cuda_ms(lambda: p1.pallas_tail(hi, lo, dpack, 0.0))
+    plain = cuda_ms(lambda: p1.xla_tail(hi, lo, dpack, 0.0))
+    b = bound(tail_bytes(p1.LANES, False, 1, 0), 4 * p1.LANES)
+    print(f"  P1 pallas_tail at 2^21 lanes, W_BITS 21: K1 == xla_tail bit "
+          f"for bit; K1 {ms:.4f} ms, xla_tail {plain:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms")
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+                **b, library_ms=None)
 
 
 # --------------------------------------------------------------- phase 3: K2
@@ -190,14 +350,28 @@ def phase_k2(device, rng):
     thr, _ = compact.sample_threshold(key, kk)
     ms = cuda_ms(lambda: compact.pack_survivors(key, thr))
     plain = cuda_ms(lambda: compact.pack_survivors_reference(key, thr))
-    print(f"  K2 time at 2^24 lanes: kernel {ms:.4f} ms, twin {plain:.4f} ms")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain)
+
+    def library():
+        # one PyTorch call's worth: the surviving lanes and their keys
+        idx = torch.nonzero(key <= thr).flatten()
+        return key[idx], idx
+
+    lib_ms = cuda_ms(library)
+    count = int(compact.pack_survivors(key, thr)[2])
+    # read every key once; write each survivor's key and lane, and the count
+    b = bound(4 * total + 8 * count + 4, total)
+    print(f"  K2 time at 2^24 lanes ({count} survivors): kernel {ms:.4f} ms, "
+          f"twin {plain:.4f} ms, nonzero + gather {lib_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **b,
+                library_ms=lib_ms)
 
 
 # --------------------------------------------------- phase 4: end to end
 
-def dense_oracle(g, spec, d1):
-    """{(u, v): score} over valid upper-triangle pairs, float64."""
+def dense_oracle(g, spec, d1, sources=None):
+    """{(u, v): score} over valid upper-triangle pairs, or with ``sources``
+    over directed pairs (s, w), w != s; float64."""
     n = g.n
     a = np.zeros((n, n))
     src = np.repeat(np.arange(n), g.degrees)
@@ -212,8 +386,13 @@ def dense_oracle(g, spec, d1):
         acc = (a * (spec.weight_from_degree(deg, xp=np) * ok)[None, :]) @ a
     with np.errstate(divide="ignore", invalid="ignore"):
         s = spec.score(cnt, acc, deg[:, None], deg[None, :], xp=np)
-    valid = np.triu(np.ones((n, n), bool), 1) & (a == 0) & (cnt > 0) \
-        & (np.nan_to_num(s, nan=-np.inf) > 0)
+    if sources is None:
+        valid = np.triu(np.ones((n, n), bool), 1)
+    else:
+        valid = np.zeros((n, n), bool)
+        valid[np.asarray(sources)] = True
+        np.fill_diagonal(valid, False)
+    valid &= (a == 0) & (cnt > 0) & (np.nan_to_num(s, nan=-np.inf) > 0)
     us, vs = np.nonzero(valid)
     return {(int(u), int(v)): float(s[u, v]) for u, v in zip(us, vs)}
 
@@ -234,38 +413,106 @@ def same_result(got, want, spec, where):
     check(above(got) == above(want), f"{where}: pairs above the k boundary")
 
 
+def check_oracle(g, res, d1, where, sources=None, k=20_000):
+    import linkpred_tpu_torch as lt
+
+    for name, r in res.items():
+        pairs = dense_oracle(g, lt.METRICS[name], d1, sources)
+        check(len(r) == min(len(pairs), k), f"{where} {name}: oracle rows")
+        for u, v, s in zip(r.u, r.v, r.score):
+            check(np.isclose(s, pairs[(int(u), int(v))], rtol=1e-5),
+                  f"{where} {name}: oracle score ({u}, {v})")
+
+
 def phase_end_to_end(device):
+    """``predict_links_multi`` for all 9 metrics, cuda against cpu (and the
+    dense oracle where n <= 512): the packed stream at d1 in {64, 0}; the
+    edge stream (``slot_budget=0``) in its keyed branch (K1 with killers) at
+    d1 in {0, 4}, its sentinel two-key branch and serving mode; and runs
+    with ``HUGE_DEVICE_MAX`` forced small so hub sources go to the host
+    scorer (``plan.host_src``)."""
+    import dataclasses
+
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.bench.synth import (planted_partition_graph,
                                                 rmat_graph)
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.predict import plan as plan_mod
+    from linkpred_tpu_torch.predict import scoring
 
     names = list(lt.METRICS)
+    opts = lt.PredictOptions(max_edges=20_000)
     graphs = [("planted(8,32)", planted_partition_graph(8, 32, p_in=0.4,
                                                         p_out=0.002, seed=1)),
               ("RMAT-12", rmat_graph(12, edge_factor=16, seed=42))]
+
+    def run(g, d1, where, sources=None, keyed=True, slot_budget=0, cap=None):
+        res = {}
+        for dev in (device, "cpu"):
+            p = plan_mod.build_plan(g, d1, cap, slot_budget=slot_budget,
+                                    sources=sources, device=dev)
+            if not keyed:
+                p = dataclasses.replace(p, keyed=False)
+            k_before, s_before = ft.KILLER_LAUNCHES, scoring.SEGMENT_RUNS
+            res[str(dev)] = lt.predict_links_multi(
+                g, names, min_degree1=d1, options=opts, plan=p,
+                sources=sources, device=dev)
+            if dev == device:
+                killers = ft.KILLER_LAUNCHES - k_before
+                check(slot_budget != 0 or not p.packed or not p.total_slots,
+                      f"{where}: plan not on the edge stream")
+                check((killers > 0) == (keyed and not p.packed),
+                      f"{where}: K1 killer launches {killers}")
+        got, want = res[str(device)], res["cpu"]
+        for name in names:
+            same_result(got[name], want[name], lt.METRICS[name],
+                        f"{where} {name}")
+        if g.n <= 512:
+            check_oracle(g, got, d1, where, sources)
+        return p, got
+
     for gname, g in graphs:
         for d1 in (64, 0):
-            opts = lt.PredictOptions(max_edges=20_000)
-            got = lt.predict_links_multi(g, names, min_degree1=d1,
-                                         options=opts, device=device)
-            want = lt.predict_links_multi(g, names, min_degree1=d1,
-                                          options=opts, device="cpu")
-            for name in names:
-                same_result(got[name], want[name], lt.METRICS[name],
-                            f"{gname} d1={d1} {name}")
-            if g.n <= 512:
-                for name in names:
-                    pairs = dense_oracle(g, lt.METRICS[name], d1)
-                    r = got[name]
-                    check(len(r) == min(len(pairs), 20_000),
-                          f"{gname} {name}: oracle row count")
-                    for u, v, s in zip(r.u, r.v, r.score):
-                        check(np.isclose(s, pairs[(int(u), int(v))],
-                                         rtol=1e-5),
-                              f"{gname} {name}: oracle score ({u}, {v})")
-            print(f"  {gname} d1={d1}: 9 metrics, cuda == cpu "
+            p, got = run(g, d1, f"{gname} d1={d1}", slot_budget=None)
+            print(f"  {gname} d1={d1} ({'packed' if p.packed else 'edge'}):"
+                  f" 9 metrics, cuda == cpu "
                   f"({len(got['jaccard_coefficient'])} Jaccard rows)"
                   + (", == dense oracle" if g.n <= 512 else ""))
+        # the planted graph's degrees are ~13: d1=4 leaves it no candidate
+        for d1 in (0, 4) + ((16,) if g.n <= 512 else ()):
+            p, got = run(g, d1, f"{gname} d1={d1} edge")
+            print(f"  {gname} d1={d1} edge stream: {p.num_tiles} tiles, "
+                  f"9 metrics, cuda == cpu ({len(got['jaccard_coefficient'])}"
+                  " Jaccard rows)" + (", == dense oracle" if g.n <= 512
+                                      else ""))
+        run(g, 0, f"{gname} sentinel", keyed=False)
+        print(f"  {gname} d1=0 sentinel two-key branch: cuda == cpu")
+        sources = np.arange(0, g.n, max(g.n // 24, 1))
+        got = run(g, 0, f"{gname} serving", sources=sources)[1]
+        check(set(np.unique(got["jaccard_coefficient"].u))
+              <= set(sources.tolist()), f"{gname} serving: sources")
+        print(f"  {gname} serving mode ({sources.size} sources) on the edge "
+              "stream: cuda == cpu")
+
+    g = graphs[0][1]
+    saved = plan_mod.HUGE_DEVICE_MAX
+    plan_mod.HUGE_DEVICE_MAX = 160
+    try:
+        for budget in (None, 0):
+            p, got = run(g, 0, f"host_src slot_budget={budget}",
+                         slot_budget=budget, cap=128)
+            check(p.host_src.size > 0 and p.huge_plan is not None,
+                  "host_src: no mega-hub source or no hub sub-plan")
+            hub = set(p.host_src.tolist())
+            check(any(int(u) in hub for u in got["common_neighbors"].u),
+                  "host_src: no host-scored row in the result")
+            print(f"  planted d1=0, cap 128, HUGE_DEVICE_MAX 160 "
+                  f"({'packed' if p.packed else 'edge stream'}): "
+                  f"{p.host_src.size} sources scored on the host beside a "
+                  f"{p.huge_plan.num_tiles}-tile hub sub-plan, cuda == cpu "
+                  "== dense oracle")
+    finally:
+        plan_mod.HUGE_DEVICE_MAX = saved
 
 
 # --------------------------------------------------- phase 5: main path
@@ -277,105 +524,73 @@ def time_split(device, plan, y, k):
     the selection (threshold, K2, survivor sort, gathers).  The device busy
     share comes from the kernels of one profiled pass."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from linkpred_tpu_torch.ops import fused_tail as ft
-    from linkpred_tpu_torch.predict import scoring
-    from linkpred_tpu_torch.predict.metrics import METRICS
+    from linkpred_tpu_torch.predict import api, scoring
 
-    mets = (METRICS["jaccard_coefficient"],)
+    names = ("jaccard_coefficient",)
     stream = plan.device_stream(device)
-    all_slots = plan.total_slots + plan.huge_slots + (
-        plan.side_plan.total_slots if plan.side_plan else 0)
-    kk = min(-(-k // 1024) * 1024, max(all_slots, 1))   # the API's exact k
-    kw = dict(metrics=mets, cap=plan.cap, maxf2=0, min_score=0.0,
-              w_bits=plan.w_bits, n=y.n, deg16=plan.deg16)
+    kk = api._exact_k(plan, k)
     ts = plan.tile_start
     bounds = [(int(ts[t]), int(ts[t + 1])) for t in range(len(ts) - 1)
               if ts[t] < ts[t + 1]]
+    tile_fn = scoring.tile_scorer(stream, metric_names=names, n=y.n,
+                                  **api._pass_kwargs(plan))
 
     def one_pass():
-        return scoring.score_tiles(
-            stream, ts, 0.0, metric_names=(mets[0].name,), cap=plan.cap,
-            k=kk, n=y.n, w_bits=plan.w_bits, deg16=plan.deg16,
-            device=device)
+        return scoring.scan_tiles(tile_fn, ts, kk, 1, plan.cap,
+                                  device=device)
 
     def tiles():
-        return [scoring.tile_candidates_packed(*stream, s, e, **kw)
-                for s, e in bounds]
+        return [tile_fn(s, e) for s, e in bounds]
 
-    # sorted tiles as K1 receives them
+    # the pass's buffer (ghost tiles included), and the sorted tiles as K1
+    # receives them
     sorted_in = []
     orig = scoring.fused_tail
     scoring.fused_tail = lambda *a, **k_: sorted_in.append((a, k_)) \
         or orig(*a, **k_)
     try:
-        outs = tiles()
+        buf = scoring._fill_buffer(tile_fn, ts, range(len(ts) - 1), 1,
+                                   plan.cap, device)
     finally:
         scoring.fused_tail = orig
-    keys = torch.cat([o[0] for o in outs], dim=1)
-    us = torch.cat([o[1] for o in outs])
-    vs = torch.cat([o[2] for o in outs])
-    pad = plan.num_tiles_padded * plan.cap - keys.shape[1]
-    if pad:   # ghost tiles, as the pass buffers them
-        lane = torch.arange(pad, dtype=torch.int32, device=device)
-        keys = torch.cat([keys, (0x7F800000 | (lane & 0x7FFFFE))[None]], 1)
-        us = torch.cat([us, torch.zeros(pad, dtype=us.dtype, device=device)])
-        vs = torch.cat([vs, torch.zeros(pad, dtype=vs.dtype, device=device)])
     split = {
         "pass": cuda_ms(one_pass, 5),
         "tile loop": cuda_ms(tiles, 5),
         "K1 alone": cuda_ms(lambda: [ft.fused_tail(*a, **k_)
                                      for a, k_ in sorted_in], 5),
-        "selection": cuda_ms(lambda: scoring._select_topk(keys, us, vs, kk),
-                             5),
+        "selection": cuda_ms(lambda: scoring._select_topk(*buf, kk), 5),
     }
     one_pass()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         one_pass()
         torch.cuda.synchronize()
-    by_kernel = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) \
-                + ev.device_time_total / 1e3
-    return split, by_kernel
+    return split, device_ms_by_kernel(prof)
 
 
 def phase_main_path(device, scale: int = 19):
-    import torch
     import linkpred_tpu_torch as lt
-    from linkpred_tpu_torch.bench.synth import rmat_graph
     from linkpred_tpu_torch.ops import compact
     from linkpred_tpu_torch.ops import fused_tail as ft
-    from linkpred_tpu_torch.ops.batch import (apply_batch,
-                                              generate_edge_deletions,
-                                              tidy_batch)
     from linkpred_tpu_torch.predict import scoring
     from linkpred_tpu_torch.predict.plan import build_plan
 
     t0 = time.perf_counter()
-    g = rmat_graph(scale, edge_factor=16, seed=42)
-    rng = np.random.default_rng(0)
-    deletions = generate_edge_deletions(rng, g, int(0.1 * g.size / 2),
-                                        undirected=True)
-    deletions, insertions = tidy_batch(deletions, np.empty((0, 2), np.int64),
-                                       g)
-    y = apply_batch(g, deletions, insertions)
+    y, removed, k = bench_graph(scale)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     plan = build_plan(y, 64, device=device)
     plan_ms = (time.perf_counter() - t0) * 1e3
-    k = max(deletions.shape[0] // 2, 1)
     print(f"  RMAT-{scale}: n={y.n} |E|={y.size} removed={k} "
           f"setup {setup_s:.1f} s; plan: cap {plan.cap}, "
           f"{plan.num_tiles} tiles ({plan.num_tiles_padded} padded), "
           f"{plan.total_slots} slots, plan_ms {plan_ms:.1f}")
     opts = lt.PredictOptions(repeat=5, max_edges=k)
 
-    ft.LAUNCHES = compact.LAUNCHES = 0
+    ft.LAUNCHES = ft.KILLER_LAUNCHES = compact.LAUNCHES = 0
     scoring.PACKED_ARM_RUNS = scoring.SORT_ARM_RUNS = 0
     rates, res = [], None
     for _ in range(3):
@@ -385,18 +600,14 @@ def phase_main_path(device, scale: int = 19):
     launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
     arms = (scoring.PACKED_ARM_RUNS, scoring.SORT_ARM_RUNS)
 
-    removed = {(int(a), int(b)) for a, b in deletions if a < b}
-    got = {(min(int(a), int(b)), max(int(a), int(b)))
-           for a, b in zip(res.u, res.v)}
-    hits = len(removed & got)
-    recall = hits / max(len(removed), 1)
+    recall = recall_of(res, removed)
     rates.sort()
     print(f"  RMAT-{scale} LHub Jaccard deg 64: edges/s median "
           f"{rates[1]:.6e} (samples {', '.join(f'{r:.6e}' for r in rates)});"
           f" scoring_ms {res.scoring_ms:.3f}, transfer_ms "
           f"{res.transfer_ms:.3f}, plan_ms {plan_ms:.1f}; "
-          f"{len(res)} predictions, {hits} removed edges recovered "
-          f"(recall {recall:.6g})")
+          f"{len(res)} predictions, {round(recall * len(removed))} removed "
+          f"edges recovered (recall {recall:.6g})")
     print(f"  launches in the main path: {launches}; selection arms "
           f"packed={arms[0]} sort={arms[1]}")
     check(len(res) == k and np.isfinite(res.score).all(),
@@ -406,6 +617,7 @@ def phase_main_path(device, scale: int = 19):
     check(all(v > 0 for v in launches.values()),
           f"main path: a kernel never launched: {launches}")
     check(arms[0] > 0, "main path: the survivor pack arm never ran")
+    check(ft.KILLER_LAUNCHES == 0, "main path: killers on packed tiles")
 
     split, by_kernel = time_split(device, plan, y, k)
     busy = sum(by_kernel.values())
@@ -416,6 +628,292 @@ def phase_main_path(device, scale: int = 19):
           "top device work of the pass:")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms:8.3f} ms  {name[:90]}")
+    return launches
+
+
+# --------------------------------------------------- phase 6: IHub path
+
+def bench_graph(scale: int):
+    """R-MAT at the bench protocol: edge factor 16, seed 42, 0.1|E|
+    removed.  Returns (the graph with the edges removed, the removed
+    undirected edges as a set of (u < v), k)."""
+    from linkpred_tpu_torch.bench.synth import rmat_graph
+    from linkpred_tpu_torch.ops.batch import (apply_batch,
+                                              generate_edge_deletions,
+                                              tidy_batch)
+
+    g = rmat_graph(scale, edge_factor=16, seed=42)
+    rng = np.random.default_rng(0)
+    deletions = generate_edge_deletions(rng, g, int(0.1 * g.size / 2),
+                                        undirected=True)
+    deletions, insertions = tidy_batch(deletions, np.empty((0, 2), np.int64),
+                                       g)
+    y = apply_batch(g, deletions, insertions)
+    removed = {(int(a), int(b)) for a, b in deletions if a < b}
+    return y, removed, max(deletions.shape[0] // 2, 1)
+
+
+def recall_of(res, removed) -> float:
+    got = {(min(int(a), int(b)), max(int(a), int(b)))
+           for a, b in zip(res.u, res.v)}
+    return len(removed & got) / max(len(removed), 1)
+
+
+def device_ms_by_kernel(prof):
+    from torch.autograd import DeviceType
+
+    by_kernel = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) \
+                + ev.device_time_total / 1e3
+    return by_kernel
+
+
+def pass_tile_fn(device, p, y, indices=None, degrees=None, stream=None):
+    """The Jaccard tile scorer of pass ``p``, as ``predict_links`` builds
+    it (``stream``: the pass's device stream unless given)."""
+    from linkpred_tpu_torch.predict import api, scoring
+
+    return scoring.tile_scorer(
+        p.device_stream(device) if stream is None else stream,
+        metric_names=("jaccard_coefficient",), n=y.n, indices=indices,
+        degrees=degrees, **api._pass_kwargs(p))
+
+
+def tile_vs_cpu(where, device, p, y, t, indices=None, degrees=None):
+    """Tile ``t`` of pass ``p`` scored on the card and again on CPU copies
+    of its window and the CSR (where K1's plain twin runs): the keys, ku
+    and kw must be equal.  Returns the count of scored lanes."""
+    import torch
+    from linkpred_tpu_torch.ops.topk import desc_key_score
+
+    s, e = int(p.tile_start[t]), int(p.tile_start[t + 1])
+    got = pass_tile_fn(device, p, y, indices, degrees)(s, e)
+    cpu = lambda a: None if a is None else a.cpu()  # noqa: E731
+    win = tuple(None if a is None else a[s: s + p.cap].cpu()
+                for a in p.device_stream(device))
+    want = pass_tile_fn("cpu", p, y, cpu(indices), cpu(degrees),
+                        stream=win)(0, e - s)
+    for a, b, what in zip(got, want, ("keys", "ku", "kw")):
+        check(torch.equal(a.cpu(), b), f"{where}: {what} differ from the "
+              "CPU's")
+    return int(torch.isfinite(desc_key_score(want[0][0])).sum())
+
+
+def ihub_pass_split(device, plan, y, kk, indices, degrees):
+    """One scoring pass of the IHub plan, pass by pass (the edge stream,
+    then the hub sub-plan), host clock around each with a sync.  Then each
+    pass's selection alone, with CUDA events, on a buffer of its real
+    tiles: one segment and the merge of the segments' winners where the
+    pass selects by segment, the whole buffer where it does not."""
+    import torch
+    from linkpred_tpu_torch.ops.topk import TopK
+    from linkpred_tpu_torch.predict import api, scoring
+
+    out = []
+    for p in [plan, *api._sub_plans(plan)]:
+        tile_fn = pass_tile_fn(device, p, y, indices, degrees)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scoring.scan_tiles(tile_fn, p.tile_start, kk, 1, p.cap,
+                           device=device)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_seg, seg = scoring._segments(len(p.tile_start) - 1, p.cap, 1,
+                                       device)
+        buf = scoring._fill_buffer(tile_fn, p.tile_start, range(seg), 1,
+                                   p.cap, device)
+        lanes = buf[1].shape[0]
+        if n_seg == 1:
+            sel = {f"selection over {lanes} lanes": cuda_ms(
+                lambda: scoring._select_topk(*buf, kk), 3)}
+        else:
+            kk_seg = min(kk, seg * p.cap)
+            top = scoring._select_topk(*buf, kk_seg, allow_pack=False)
+            stacked = TopK(*(torch.stack([x] * n_seg) for x in top))
+            sel = {
+                f"selection of the first segment ({lanes} lanes, no pack)":
+                    cuda_ms(lambda: scoring._select_topk(
+                        *buf, kk_seg, allow_pack=False), 3),
+                f"merge of {n_seg} segments' winners "
+                f"({n_seg * top.scores.shape[1]} lanes)":
+                    cuda_ms(lambda: scoring._merge_stacked(stacked, kk), 3)}
+            del top, stacked
+        del buf
+        torch.cuda.empty_cache()
+        out.append((p, ms, n_seg, sel))
+    return out
+
+
+def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
+    """Per-tile time split of the edge stream over a window of ``n_win``
+    tiles from the middle of the plan, each part timed alone with CUDA
+    events: the slot-map rebuild and gathers (``edge_keys``), the int64
+    sort with its payload gathers (``keyed_sort``), K1 with killers; and a
+    profiler table of the window's whole tiles.  K1 is held against its
+    twin on every sorted tile of the window first.  Returns the window's
+    size, the split, the profiler's device ms by kernel, the window's wall
+    ms and the count of killed runs that cross a K1 block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.predict import scoring
+    from linkpred_tpu_torch.predict.metrics import METRICS
+
+    mets = [METRICS["jaccard_coefficient"]]
+    stream = plan.device_stream(device)
+    ts = plan.tile_start
+    bounds = [(int(ts[t]), int(ts[t + 1])) for t in range(len(ts) - 1)
+              if ts[t] < ts[t + 1]]
+    mid = max(len(bounds) // 2 - n_win // 2, 0)
+    win = bounds[mid: mid + n_win]
+    kw = dict(metrics=mets, cap=plan.cap, w_bits=plan.w_bits,
+              upper_only=plan.upper_only)
+    tail_kw = dict(metrics=mets, w_bits=plan.w_bits, n=y.n, maxf2=0,
+                   killers=True)
+    tile_fn = pass_tile_fn(device, plan, y, indices, degrees)
+
+    def tiles():
+        return [tile_fn(s, e) for s, e in win]
+
+    def keys():
+        return [scoring.edge_keys(indices, degrees, stream, s, e, **kw)
+                for s, e in win]
+
+    keyed = keys()
+    sorted_in = [scoring.keyed_sort(*a, deg16=plan.deg16, predpacked=False)
+                 for a in keyed]
+    crossing = 0
+    for j, (hi, lo, degs, wts) in enumerate(sorted_in):
+        skeys, _ = k1_vs_twin(f"IHub edge tile {mid + j}", mets,
+                              (hi, lo, degs, wts, 0.0), tail_kw)
+        crossing += killed_runs_cross_blocks(hi, lo, skeys)
+        del skeys
+    split = {
+        "tile": cuda_ms(tiles, 3),
+        "slot map + gathers": cuda_ms(keys, 3),
+        "sort + payload gathers": cuda_ms(
+            lambda: [scoring.keyed_sort(*a, deg16=plan.deg16,
+                                        predpacked=False) for a in keyed], 3),
+        "K1 (killers)": cuda_ms(lambda: [ft.fused_tail(*a, 0.0, **tail_kw)
+                                         for a in sorted_in], 3),
+    }
+    split = {k: v / len(win) for k, v in split.items()}
+    del keyed, sorted_in
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tiles()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return len(win), split, device_ms_by_kernel(prof), wall, crossing
+
+
+def phase_ihub(device, scale: int = 18):
+    """IHub at scale: predict_links Jaccard at min_degree1=0 with the
+    card's own budgets, which put RMAT-18 on the edge stream."""
+    import torch
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.predict import api, scoring
+    from linkpred_tpu_torch.predict.plan import build_plan
+
+    t0 = time.perf_counter()
+    y, removed, k = bench_graph(scale)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = build_plan(y, 0, device=device)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    hp = plan.huge_plan
+    print(f"  RMAT-{scale}: n={y.n} |E|={y.size} removed={k} setup "
+          f"{setup_s:.1f} s; IHub plan: packed={plan.packed}, cap "
+          f"{plan.cap}, {plan.num_tiles} tiles ({plan.num_tiles_padded} "
+          f"padded), {plan.total_slots} slots, deg16={plan.deg16}; hub "
+          "sub-plan: "
+          + (f"packed={hp.packed}, cap {hp.cap}, {hp.num_tiles} tiles, "
+             f"{hp.total_slots} slots" if hp is not None else "none")
+          + f"; host_src {plan.host_src.size}; plan_ms {plan_ms:.1f}")
+    check(not plan.packed, "IHub: the plan is not on the edge stream")
+    check(hp is not None, "IHub: no hub sub-plan")
+    opts = lt.PredictOptions(repeat=1, max_edges=k)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    ft.LAUNCHES = ft.KILLER_LAUNCHES = compact.LAUNCHES = 0
+    scoring.SEGMENT_RUNS = 0
+    rates, res = [], None
+    for _ in range(3):
+        res = lt.predict_links(y, "jaccard_coefficient", min_degree1=0,
+                               options=opts, plan=plan, device=device)
+        rates.append(y.size / (res.scoring_ms / 1e3))
+    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    killer_launches, seg_runs = ft.KILLER_LAUNCHES, scoring.SEGMENT_RUNS
+    n_passes = 3 * 2          # each call: one warm-up pass, one timed pass
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    recall = recall_of(res, removed)
+    rates.sort()
+    print(f"  RMAT-{scale} IHub Jaccard: edges/s median {rates[1]:.6e} "
+          f"(samples {', '.join(f'{r:.6e}' for r in rates)}); scoring_ms "
+          f"{res.scoring_ms:.3f}, transfer_ms {res.transfer_ms:.3f}, plan_ms "
+          f"{plan_ms:.1f}; {len(res)} predictions, recall {recall:.6g}; "
+          f"peak device memory {peak_gb:.3f} GB")
+    print(f"  launches in the IHub path ({n_passes} passes): {launches}, of "
+          f"which K1 with killers {killer_launches}; selection segments "
+          f"{seg_runs}")
+    check(len(res) == k and np.isfinite(res.score).all(),
+          "IHub: k finite predictions")
+    check(np.all(np.diff(res.score) <= 0), "IHub: scores descending")
+    check(killer_launches > 0, "IHub: K1 never ran its killer branch")
+    # one K1 launch per non-empty tile of the edge stream and the hub
+    # sub-plan, in every pass
+    tiles = [int(np.count_nonzero(np.diff(p.tile_start) > 0))
+             for p in (plan, hp)]
+    check(launches["fused_tail"] == n_passes * sum(tiles),
+          f"IHub: {launches['fused_tail']} K1 launches, not {n_passes} x "
+          f"({tiles[0]} edge tiles + {tiles[1]} hub sub-plan tiles)")
+    check(seg_runs >= 2 * n_passes,
+          f"IHub: the edge pass selected over {seg_runs} segments in "
+          f"{n_passes} passes, not more than one each")
+
+    indices, degrees = lt.PlanCache().device_graph(y, device)
+    # the path's tiles at their real shapes against the CPU, whose K1 is
+    # the plain twin: an edge tile (K1 with killers, cap 2^21) and the hub
+    # sub-plan's fullest tile (clean K1 at cap 2^23, 4,096 kernel blocks)
+    live = np.flatnonzero(np.diff(plan.tile_start) > 0)
+    mid = int(live[live.size // 2])
+    fullest = int(np.argmax(np.diff(hp.tile_start)))
+    for where, p, t, csr in (("edge tile", plan, mid, (indices, degrees)),
+                             ("hub sub-plan tile", hp, fullest, ())):
+        scored = tile_vs_cpu(f"IHub {where} {t}", device, p, y, t, *csr)
+        check(scored > 0, f"IHub {where} {t}: no scored pair")
+        print(f"  IHub {where} {t} (cap {p.cap}): card == CPU (keys, ku, "
+              f"kw), {scored} scored pairs")
+    kk = api._exact_k(plan, k)
+    for p, ms, n_seg, sel in ihub_pass_split(device, plan, y, kk, indices,
+                                             degrees):
+        print(f"  pass {'edge stream' if not p.packed else 'packed'} cap "
+              f"{p.cap}, {p.num_tiles} tiles: {ms:.3f} ms (host clock), "
+              f"{n_seg} selection segment(s)")
+        for name, sel_ms in sel.items():
+            print(f"    {name}: {sel_ms:.3f} ms")
+    n_win, split, by_kernel, wall, crossing = ihub_tile_split(
+        device, plan, y, indices, degrees)
+    print(f"  K1 with killers == twin on all {n_win} tiles of the window; "
+          f"{crossing} killed runs cross a K1 block there")
+    print(f"  edge tile split over {n_win} tiles of cap {plan.cap} (ms per "
+          "tile, each part timed alone): " + ", ".join(
+              f"{name} {ms:.4f}" for name, ms in split.items()))
+    busy = sum(by_kernel.values())
+    print(f"  profiler over the window: device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%); top device work:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms:8.3f} ms  {name[:90]}")
+    del indices, degrees
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -437,28 +935,49 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           "device(s)")
+    t_start = time.perf_counter()
 
-    print("phase 1: build")
+    def phase(title):
+        print(f"{title} (at {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
+
+    rng = np.random.default_rng(0)
+    phase("phase 1: build, then P5 against its plain version")
     t0 = time.perf_counter()
     _build.load()
     print(f"  kernels built by nvcc from linkpred_tpu_torch/kernels/csrc "
           f"and loaded in {time.perf_counter() - t0:.2f} s")
-
-    rng = np.random.default_rng(0)
-    print("phase 2: K1 fused_tail against its twin")
+    p5 = phase_p5(device, rng)
+    phase("phase 2: K1 fused_tail against its twin; P1 against xla_tail")
     k1 = phase_k1(device, rng)
-    print("phase 3: K2 pack_survivors against its twin")
+    p1 = phase_p1(device, rng)
+    phase("phase 3: K2 pack_survivors against its twin")
     k2 = phase_k2(device, rng)
-    print("phase 4: end to end, cuda against cpu")
+    phase("phase 4: end to end, cuda against cpu")
     phase_end_to_end(device)
     scale = int(sys.argv[1]) if len(sys.argv) > 1 else 19
-    print("phase 5: main path")
-    launches = phase_main_path(device, scale)
+    phase(f"phase 5: the LHub main path, RMAT-{scale}")
+    lhub = phase_main_path(device, scale)
+    torch.cuda.empty_cache()
+    phase("phase 6: the IHub path, RMAT-18 on the edge stream")
+    ihub = phase_ihub(device, 18)
+    phase("done")
 
+    stats = {
+        "fused_tail": dict(
+            launches=lhub["fused_tail"] + ihub["fused_tail"],
+            launches_by_path={"lhub": lhub["fused_tail"],
+                              "ihub": ihub["fused_tail"]}, **k1),
+        "pack_survivors": dict(
+            launches=lhub["pack_survivors"] + ihub["pack_survivors"],
+            launches_by_path={"lhub": lhub["pack_survivors"],
+                              "ihub": ihub["pack_survivors"]}, **k2),
+        "pallas_tail": p1,
+        "affine_smoke": p5,
+    }
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **stats)
-        for (name, src, rep), stats in zip(KERNELS, (k1, k2))]}
+             **stats[name]) for name, src, rep in KERNELS]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

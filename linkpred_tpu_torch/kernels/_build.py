@@ -1,11 +1,13 @@
 """Builds and loads the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` (plain C interfaces, no PyTorch headers) for
-``sm_90a`` into one shared library under ``linkpred_tpu_torch/build/`` at
-first use, and rebuilds when a source is newer than the library.  The
-library is loaded with ctypes; tensors go in as ``data_ptr()`` and the
-stream as ``torch.cuda.current_stream().cuda_stream``.  No ``--use_fast_math``:
-the float divides and square roots stay IEEE so unweighted scores match the
+``nvcc`` compiles the sources in ``SOURCES`` (plain C interfaces, no
+PyTorch headers) for ``sm_90a``, one process per source, all started
+together, and links them into one shared library under
+``linkpred_tpu_torch/build/`` at first use; it rebuilds when a source is
+newer than the library.  The library is loaded
+with ctypes; tensors go in as ``data_ptr()`` and the stream as
+``torch.cuda.current_stream().cuda_stream``.  No ``--use_fast_math``: the
+float divides and square roots stay IEEE so unweighted scores match the
 plain twins bit for bit.  A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
@@ -19,11 +21,11 @@ __all__ = ["load", "check", "SOURCES", "BUILD_DIR", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
-           for f in ("fused_tail.cu", "compact.cu")]
+           for f in ("fused_tail.cu", "compact.cu", "smoke.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 _SO = os.path.join(BUILD_DIR, "liblinkpred_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -42,16 +44,36 @@ def _nvcc() -> str:
         "linkpred_tpu_torch/kernels/csrc with the CUDA toolkit's nvcc")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}) building {_SO}: "
+                f"{' '.join(c)}\n{err}")
+
+
 def _build() -> None:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}) building {_SO}:\n{r.stderr}")
-    os.replace(tmp, _SO)
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in SOURCES]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                  for s, o in zip(SOURCES, objs)])
+        tmp = f"{_SO}.{tag}"
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, _SO)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
 
 
 def load() -> ctypes.CDLL:
@@ -73,6 +95,7 @@ def load() -> ctypes.CDLL:
         p, p, p, p, p, p,                 # hi, lo, deg0, deg1, w0, w1
         i64, i32, ctypes.c_uint64,        # cap, n_metrics, codes
         i32, i32, i32, ctypes.c_float,    # w_bits, n, maxf2, min_score
+        i32,                              # killers
         p, p, p, p, p]                    # skeys, ku, kw, scratch, stream
     lib.lp_pack_scratch_bytes.restype = i64
     lib.lp_pack_scratch_bytes.argtypes = [i64]
@@ -81,6 +104,9 @@ def load() -> ctypes.CDLL:
         i32,                              # CUDA device index
         p, p, i64, i64,                   # key, thr, total, capacity
         p, p, p, p, p]                    # pk, pidx, count, scratch, stream
+    lib.lp_affine_smoke.restype = i32
+    lib.lp_affine_smoke.argtypes = [i32, p, p, i64, p]  # device, x, out, n,
+    #                                                      stream
     lib.lp_cuda_error_string.restype = ctypes.c_char_p
     lib.lp_cuda_error_string.argtypes = [i32]
     _lib = lib

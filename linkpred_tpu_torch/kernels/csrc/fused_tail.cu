@@ -6,11 +6,19 @@
 // contract, is linkpred_tpu_torch/ops/fused_tail.py::fused_tail_reference.
 //
 // Input: one tile of `cap` lanes sorted by the pair (hi = candidate w,
-// lo = source u), the degree payload (deg16-packed pair, or two wide
-// arrays) and up to two float weight arrays (AA/RA), all gathered through
-// the sort permutation.  Output per lane: one int32 selection key per metric
+// lo = source u, or u << 1 | real on the edge stream), the degree payload
+// (deg16-packed pair, or two wide arrays) and up to two float weight arrays
+// (AA/RA), all gathered through the sort permutation.  Output per lane: one int32 selection key per metric
 // (the order-preserving sign-flipped form of the reference's u32 key),
 // ku = min(u, n-1) and kw = min(w, n-1).
+//
+// Killer branch (`killers`, the edge stream).  lo carries u << 1 and a
+// real/killer flag in its low bit; the sort on (w, lo) puts a run's killer
+// slots (flag 0) first.  Runs are (w, u) pairs, so run boundaries compare
+// lo >> 1, the Carry keeps its run start's flag beside the start, and a run
+// is valid only if that flag is set (its first slot is real: no killer, so
+// w is neither u nor a neighbour of u).  Killer lanes carry weight 0, so
+// the weight sums need no change.
 //
 // What bounds it: memory.  Per lane it reads 8-16 bytes of keys and degrees
 // (+4 per weight array) and writes 4 bytes per metric + 8; the arithmetic is
@@ -59,13 +67,14 @@ enum Metric : int {
 };
 
 // State of both scans over a range of lanes: `start` is the last run start
-// in the range (-1 if none), s0/s1 the weight sums since that start (or over
-// the whole range when it holds no start).
+// in the range (-1 if none), `alive` the killer flag of that start's lane
+// (the low bit of lo; 1 without killers), s0/s1 the weight sums since
+// that start (or over the whole range when it holds no start).
 struct Carry {
   int start;
   float s0;
   float s1;
-  int pad;
+  int alive;
 };
 
 __device__ __forceinline__ Carry identity() { return {-1, 0.f, 0.f, 0}; }
@@ -74,7 +83,7 @@ __device__ __forceinline__ Carry identity() { return {-1, 0.f, 0.f, 0}; }
 __device__ __forceinline__ Carry combine(const Carry &a, const Carry &b) {
   if (b.start >= 0)
     return b;
-  return {a.start, __fadd_rn(a.s0, b.s0), __fadd_rn(a.s1, b.s1), 0};
+  return {a.start, __fadd_rn(a.s0, b.s0), __fadd_rn(a.s1, b.s1), a.alive};
 }
 
 // Exclusive scan of one Carry per thread over a block of N threads
@@ -99,9 +108,17 @@ __device__ Carry block_exclusive_scan(Carry mine, Carry *sh, Carry *total) {
   return ex;
 }
 
+// The source id of lane i: lo itself, or lo >> 1 when lo carries the
+// killer flag.
+__device__ __forceinline__ int src_of(const int32_t *lo, int i,
+                                      bool killers) {
+  return killers ? lo[i] >> 1 : lo[i];
+}
+
 __device__ __forceinline__ bool run_start(const int32_t *hi, const int32_t *lo,
-                                          int i) {
-  return i == 0 || hi[i] != hi[i - 1] || lo[i] != lo[i - 1];
+                                          int i, bool killers) {
+  return i == 0 || hi[i] != hi[i - 1] ||
+         src_of(lo, i, killers) != src_of(lo, i - 1, killers);
 }
 
 struct TailArgs {
@@ -121,11 +138,12 @@ struct TailArgs {
   int n;
   int maxf2;
   float min_score;
+  bool killers;  // lo is u << 1 | real (edge stream)
 };
 
 __device__ __forceinline__ Carry lane_carry(const TailArgs &a, int i) {
-  return {run_start(a.hi, a.lo, i) ? i : -1, a.w0 ? a.w0[i] : 0.f,
-          a.w1 ? a.w1[i] : 0.f, 0};
+  return {run_start(a.hi, a.lo, i, a.killers) ? i : -1, a.w0 ? a.w0[i] : 0.f,
+          a.w1 ? a.w1[i] : 0.f, a.killers ? (a.lo[i] & 1) : 1};
 }
 
 __global__ void tail_aggregate(TailArgs a, Carry *agg) {
@@ -206,9 +224,9 @@ __global__ void tail_emit(TailArgs a, const Carry *carry_in) {
       break;
     run = combine(run, lane_carry(a, i));
     const int hi = a.hi[i];
-    const int lo = a.lo[i];
-    const bool is_end =
-        i == a.cap - 1 || a.hi[i + 1] != hi || a.lo[i + 1] != lo;
+    const int src = src_of(a.lo, i, a.killers);
+    const bool is_end = i == a.cap - 1 || a.hi[i + 1] != hi ||
+                        src_of(a.lo, i + 1, a.killers) != src;
     const int cnt = i - run.start + 1;  // run length == |N(u) ∩ N(w)|
     int du, dw;
     if (a.deg1) {
@@ -220,7 +238,7 @@ __global__ void tail_emit(TailArgs a, const Carry *carry_in) {
       du = (int)(d >> 16);
       dw = (int)(d & 0xFFFFu);
     }
-    bool valid = is_end && hi < w_limit;
+    bool valid = is_end && hi < w_limit && run.alive;
     if (a.maxf2)
       valid = valid && du <= mul_wrap(a.maxf2, du) &&
               dw <= mul_wrap(a.maxf2, du);
@@ -243,7 +261,7 @@ __global__ void tail_emit(TailArgs a, const Carry *carry_in) {
         key |= i & 0x7FFFFE;  // spread the invalid mass by lane
       a.skeys[(size_t)m * a.cap + i] = key;
     }
-    a.ku[i] = min(lo, a.n - 1);
+    a.ku[i] = min(src, a.n - 1);
     a.kw[i] = min(hi, a.n - 1);
   }
 }
@@ -263,8 +281,8 @@ int64_t lp_fused_tail_scratch_bytes(int64_t cap) {
 int lp_fused_tail(int device, const void *hi, const void *lo, const void *deg0,
                   const void *deg1, const void *w0, const void *w1,
                   int64_t cap, int n_metrics, uint64_t codes, int w_bits,
-                  int n, int maxf2, float min_score, void *skeys, void *ku,
-                  void *kw, void *scratch, void *stream) {
+                  int n, int maxf2, float min_score, int killers, void *skeys,
+                  void *ku, void *kw, void *scratch, void *stream) {
   TailArgs a;
   a.hi = static_cast<const int32_t *>(hi);
   a.lo = static_cast<const int32_t *>(lo);
@@ -282,6 +300,7 @@ int lp_fused_tail(int device, const void *hi, const void *lo, const void *deg0,
   a.n = n;
   a.maxf2 = maxf2;
   a.min_score = min_score;
+  a.killers = killers != 0;
   const int nblk = (int)((cap + kTile - 1) / kTile);
   if (nblk == 0)
     return 0;

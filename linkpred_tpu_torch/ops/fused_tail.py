@@ -1,4 +1,4 @@
-"""The post-sort tail of a packed tile: kernel K1 and its plain twin.
+"""The post-sort tail of a tile: kernel K1 and its plain twin.
 
 Counterpart of ``linkpred_tpu/ops/fused_tail.py`` (the Pallas kernel
 ``_tail_kernel``, launched by ``fused_tail``).  After the tile sort, one pass
@@ -9,11 +9,15 @@ segmented sum of the AA/RA mid weights, the degree pair, validity (run end,
 descending selection key with invalid lanes spread by lane index, and the
 clamped ``ku``/``kw``.
 
+Two branches, as in the reference.  The packed stream dropped dead slots at
+plan time, so ``lo`` is the bare source id (``killers=False``).  The edge
+stream carries killer slots (``killers=True``): ``lo`` is
+``u << 1 | real``, runs are (w, u) pairs compared on ``lo >> 1``, the sort
+puts a run's killer first, and a run is alive iff its first slot is real.
+
 ``fused_tail`` is the wrapper.  For CPU tensors it runs
 :func:`fused_tail_reference`, the plain PyTorch version; for CUDA tensors it
-launches ``kernels/csrc/fused_tail.cu`` or raises.  The packed stream drops
-dead slots at plan time, so the reference's killer-flag branch (the edge
-stream's) is not here; it comes with the edge stream.
+launches ``kernels/csrc/fused_tail.cu`` or raises.
 """
 from __future__ import annotations
 
@@ -23,10 +27,13 @@ from ..predict.metrics import METRICS, maxf2_mask
 from .segment import cummax, run_boundaries, segment_run_totals
 from .topk import desc_score_key, spread_invalid
 
-__all__ = ["fused_tail", "fused_tail_reference", "LAUNCHES"]
+__all__ = ["fused_tail", "fused_tail_reference", "score_keys", "LAUNCHES",
+           "KILLER_LAUNCHES"]
 
-# Launches of the CUDA kernel (the wrapper adds one per launch).
+# Launches of the CUDA kernel (the wrapper adds one per launch), and of
+# those, the launches with the killer branch on.
 LAUNCHES = 0
+KILLER_LAUNCHES = 0
 
 _CODES = {name: i for i, name in enumerate(METRICS)}
 
@@ -38,16 +45,37 @@ def _unpack(degs):
     return (degs[0] >> 16) & 0xFFFF, degs[0] & 0xFFFF
 
 
+def score_keys(metrics, cnt, accs, du, dw, valid, min_score, iota):
+    """Selection keys ``[M, cap]`` of the scored runs: each metric's score
+    where ``valid`` and above ``min_score``, -inf (spread by ``iota``)
+    elsewhere.  ``accs`` maps a weighted metric's name to its run sums."""
+    cntf = cnt.to(torch.float32)
+    rows = []
+    for metric in metrics:
+        sc = metric.score(cnt, accs.get(metric.name, cntf), du, dw)
+        sc = torch.where(valid & (sc > min_score), sc, float("-inf"))
+        rows.append(spread_invalid(desc_score_key(sc), sc, iota))
+    return torch.stack(rows)
+
+
 def fused_tail_reference(hi, lo, degs, wts, min_score, *, metrics,
-                         w_bits: int, n: int, maxf2: int = 0):
+                         w_bits: int, n: int, maxf2: int = 0,
+                         killers: bool = False):
     """Plain PyTorch tail; same arguments and results as :func:`fused_tail`."""
     cap = hi.shape[0]
     iota = torch.arange(cap, dtype=torch.int32, device=hi.device)
-    is_start, is_end = run_boundaries(hi, lo)
-    start = cummax(torch.where(is_start, iota, 0))
+    src = lo >> 1 if killers else lo
+    is_start, is_end = run_boundaries(hi, src)
+    valid = is_end & (hi < (1 << w_bits))
+    if killers:
+        # one max-scan carries the run start and its first slot's flag
+        m = cummax(torch.where(is_start, (iota << 1) | (lo & 1), 0))
+        start = m >> 1
+        valid &= (m & 1) == 1
+    else:
+        start = cummax(torch.where(is_start, iota, 0))
     cnt = iota - start + 1                     # run length == Nuv
     du, dw = _unpack(degs)
-    valid = is_end & (hi < (1 << w_bits))
     if maxf2:
         valid &= maxf2_mask(du, dw, maxf2)
     accs = {}
@@ -56,31 +84,28 @@ def fused_tail_reference(hi, lo, degs, wts, min_score, *, metrics,
         tots = segment_run_totals(is_start, *wts)
         tots = tots if isinstance(tots, tuple) else (tots,)
         accs = {m.name: t for m, t in zip(weighted, tots)}
-    cntf = cnt.to(torch.float32)
-    rows = []
-    for metric in metrics:
-        sc = metric.score(cnt, accs.get(metric.name, cntf), du, dw)
-        sc = torch.where(valid & (sc > min_score), sc, float("-inf"))
-        rows.append(spread_invalid(desc_score_key(sc), sc, iota))
-    return torch.stack(rows), lo.clamp(max=n - 1), hi.clamp(max=n - 1)
+    skeys = score_keys(metrics, cnt, accs, du, dw, valid, min_score, iota)
+    return skeys, src.clamp(max=n - 1), hi.clamp(max=n - 1)
 
 
 def fused_tail(hi, lo, degs, wts, min_score, *, metrics, w_bits: int,
-               n: int, maxf2: int = 0):
+               n: int, maxf2: int = 0, killers: bool = False):
     """Run the tail over one sorted tile.
 
-    ``hi``/``lo``: the sorted (candidate id w, source id u) pairs, int32[cap];
-    ``degs``: ``(dpack,)`` deg16-packed pairs ``deg(u) << 16 | deg(w)`` or
-    ``(udeg, wdeg)``, int32[cap]; ``wts``: one float32[cap] weight array per
-    weighted metric, in ``metrics`` order; ``min_score``: a float.
+    ``hi``/``lo``: the sorted (candidate id w, source payload) pairs,
+    int32[cap]; the payload is the source id u, or ``u << 1 | real`` with
+    ``killers``; ``degs``: ``(dpack,)`` deg16-packed pairs
+    ``deg(u) << 16 | deg(w)`` or ``(udeg, wdeg)``, int32[cap]; ``wts``: one
+    float32[cap] weight array per weighted metric, in ``metrics`` order;
+    ``min_score``: a float.
     Returns ``(skeys int32[M, cap], ku int32[cap], kw int32[cap])``: the
     selection keys (``ops/topk.py`` form, spread applied) and the clamped
-    pair ids.  Run boundaries come from comparing neighbouring (hi, lo)
+    pair ids.  Run boundaries come from comparing neighbouring (w, u)
     pairs, which is what the reference's ``neq`` argument held."""
     if hi.device.type == "cpu":
         return fused_tail_reference(hi, lo, degs, wts, min_score,
                                     metrics=metrics, w_bits=w_bits, n=n,
-                                    maxf2=maxf2)
+                                    maxf2=maxf2, killers=killers)
     if hi.device.type != "cuda":
         raise ValueError(f"fused_tail: unsupported device {hi.device}")
     cap = hi.shape[0]
@@ -114,9 +139,10 @@ def fused_tail(hi, lo, degs, wts, min_score, *, metrics, w_bits: int,
         wts[0].data_ptr() if len(wts) > 0 else None,
         wts[1].data_ptr() if len(wts) > 1 else None,
         cap, len(metrics), codes, w_bits, n, maxf2, float(min_score),
-        skeys.data_ptr(), ku.data_ptr(), kw.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        1 if killers else 0, skeys.data_ptr(), ku.data_ptr(), kw.data_ptr(),
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused_tail")
-    global LAUNCHES
+    global LAUNCHES, KILLER_LAUNCHES
     LAUNCHES += 1
+    KILLER_LAUNCHES += bool(killers)
     return skeys, ku, kw

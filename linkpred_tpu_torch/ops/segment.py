@@ -24,15 +24,16 @@ def segment_run_totals(is_start: torch.Tensor, *values: torch.Tensor):
 
     A log-step segmented scan (sums reset at run starts), not differences
     of a global cumsum, which cancel badly in float32 over large tiles.
-    Returns one tensor per value (a tuple when there are several)."""
+    Each value keeps its dtype (int32 counts stay exact).  Returns one
+    tensor per value (a tuple when there are several)."""
     f = is_start.clone()
     vs = list(values)
     s = 1
     cap = is_start.shape[-1]
     while s < cap:
         # lane i takes lane i-s's partial sum unless a run starts in (i-s, i]
-        take = ~f[s:]
-        vs = [torch.cat([v[:s], v[s:] + torch.where(take, v[:-s], 0.0)])
+        skip = f[s:]
+        vs = [torch.cat([v[:s], v[s:] + v[:-s].masked_fill(skip, 0)])
               for v in vs]
         f = torch.cat([f[:s], f[s:] | f[:-s]])
         s *= 2

@@ -1,7 +1,9 @@
 """Public link-prediction API (counterpart of ``linkpred_tpu/predict/api.py``).
 
-Same options, results and exact-k rule as the reference; every call names
-the ``device`` it scores on.
+Same options, results and exact-k rule as the reference.  Every entry point
+scores on the CUDA card unless the caller passes ``device="cpu"`` (which
+runs the kernels' plain versions); without a card, a call that names no
+device raises.
 """
 from __future__ import annotations
 
@@ -13,10 +15,11 @@ import numpy as np
 import torch
 
 from ..graph import CSRGraph
+from ..utils.device import resolve_device
 from ..utils.timing import measure_duration
 from .metrics import get_metric
 from .plan import TilePlan, build_plan
-from .scoring import score_tiles
+from .scoring import score_huge_sources_host_multi, score_tiles
 
 __all__ = ["PredictOptions", "PredictResult", "predict_links",
            "predict_links_multi", "top_per_source", "PlanCache"]
@@ -50,25 +53,45 @@ class PredictResult:
         return int(self.u.shape[0])
 
 
+def _upload_csr(g: CSRGraph, device):
+    """``(indices, degrees)`` of ``g`` as tensors on ``device``: what the
+    edge stream gathers from."""
+    h = g.host()
+    return (torch.as_tensor(h.indices, device=device),
+            torch.as_tensor(h.degrees, device=device))
+
+
 class PlanCache:
     """Memoizes tile plans per (graph identity, min_degree1, cap, sources,
-    device).  Each entry pins the graph's arrays so an ``id()`` is never
-    reused while its entry lives."""
+    device), and the device CSR per (graph identity, device).  Each entry
+    pins the graph's arrays so an ``id()`` is never reused while its entry
+    lives."""
 
     def __init__(self) -> None:
         self._cache: dict = {}
 
-    def get(self, g: CSRGraph, min_degree1: int, cap: Optional[int],
-            sources=None, *, device) -> TilePlan:
-        skey = None if sources is None else hash(np.asarray(sources).tobytes())
-        key = (id(g.offsets), id(g.indices), g.n, g.m, min_degree1, cap, skey,
-               str(torch.device(device)))
+    def _entry(self, key, g: CSRGraph, build):
         hit = self._cache.get(key)
         if hit is None:
-            hit = (g.offsets, g.indices, build_plan(
-                g, min_degree1, cap, sources=sources, device=device))
+            hit = (g.offsets, g.indices, build())
             self._cache[key] = hit
         return hit[2]
+
+    def get(self, g: CSRGraph, min_degree1: int, cap: Optional[int],
+            sources=None, *, device="cuda") -> TilePlan:
+        device = resolve_device(device)
+        skey = None if sources is None else hash(np.asarray(sources).tobytes())
+        key = (id(g.offsets), id(g.indices), g.n, g.m, min_degree1, cap, skey,
+               str(device))
+        return self._entry(key, g, lambda: build_plan(
+            g, min_degree1, cap, sources=sources, device=device))
+
+    def device_graph(self, g: CSRGraph, device="cuda"):
+        """``(indices, degrees)`` of ``g`` on ``device``, uploaded once per
+        graph and device (only edge-stream passes read them)."""
+        device = resolve_device(device)
+        key = ("csr", id(g.offsets), id(g.indices), g.n, g.m, str(device))
+        return self._entry(key, g, lambda: _upload_csr(g, device))
 
     def clear(self) -> None:
         self._cache.clear()
@@ -85,6 +108,24 @@ def _sub_plans(p: TilePlan):
     return out
 
 
+def _exact_k(plan: TilePlan, max_edges: int) -> int:
+    """The k every pass selects: ``max_edges`` rounded up to a 1024
+    multiple, capped by the plan's slots (the reference's exact-k rule)."""
+    # huge_slots covers the hub sub-plan; the top-level side stream adds
+    all_slots = max(plan.total_slots + plan.huge_slots
+                    + (plan.side_plan.total_slots if plan.side_plan else 0),
+                    1)
+    return min(-(-min(max_edges, all_slots) // 1024) * 1024, all_slots)
+
+
+def _pass_kwargs(p: TilePlan) -> dict:
+    """What one pass ``p`` gives :func:`scoring.tile_scorer` besides the
+    stream, the metrics and the device CSR."""
+    # w_bits 0 (ids too wide for the w key) takes the sentinel branch
+    return dict(cap=p.cap, w_bits=p.w_bits if p.keyed else 0, deg16=p.deg16,
+                packed=p.packed, upper_only=p.upper_only)
+
+
 def predict_links_multi(
     g: CSRGraph,
     metrics,
@@ -98,7 +139,7 @@ def predict_links_multi(
     sources=None,
     key64: Optional[bool] = None,
     *,
-    device,
+    device="cuda",
 ) -> dict:
     """Predict links for several metrics in one pass on ``device``: the
     expansion, sort and run reduction are shared and only the formulas and
@@ -108,7 +149,10 @@ def predict_links_multi(
 
     ``min_degree1`` = 0 is IHub, > 0 LHub.  ``sources``: serving mode (score
     only pairs whose source is in the subset, directed candidates).
-    ``mesh`` and ``key64=False`` are not ported and raise."""
+    Packed and edge-stream plans both run; hub sources past
+    ``HUGE_DEVICE_MAX`` (``plan.host_src``) are scored on the host and
+    their wall time counts in the pass time.  ``mesh`` and ``key64=False``
+    are not ported and raise."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP A10, torch.distributed)")
@@ -116,7 +160,7 @@ def predict_links_multi(
         raise NotImplementedError(
             "the port keeps one engine, the int64 key; key64=False (the "
             "u32 engine) is not ported (ROADMAP rules)")
-    device = torch.device(device)
+    device = resolve_device(device)
     specs = tuple(get_metric(m) for m in metrics)
     names = tuple(s.name for s in specs)
     o = options or PredictOptions()
@@ -135,32 +179,35 @@ def predict_links_multi(
             plan = build_plan(g, min_degree1, cap, sources=sources,
                               device=device)
     passes = [plan, *_sub_plans(plan)]
-    for p in passes:
-        if not p.packed:
-            raise NotImplementedError(
-                "edge-stream plans (packed=False) are not ported yet "
-                "(ROADMAP A8)")
-        if p.host_src.size:
-            raise NotImplementedError(
-                "mega-hub sources past HUGE_DEVICE_MAX (plan.host_src) need "
-                "the host scorer, not ported yet (ROADMAP A13)")
-
-    # huge_slots covers the hub sub-plan; the top-level side stream adds
-    all_slots = (plan.total_slots + plan.huge_slots
-                 + (plan.side_plan.total_slots if plan.side_plan else 0))
-    # exact k, rounded to a 1024 multiple
-    k = min(-(-min(max_edges, max(all_slots, 1)) // 1024) * 1024,
-            max(all_slots, 1))
+    k = _exact_k(plan, max_edges)
     weighted = any(s.needs_weight for s in specs)
     streams = [p.device_stream(device, weighted) for p in passes]
+    indices = degrees = None
+    if not all(p.packed for p in passes):
+        indices, degrees = (plan_cache.device_graph(g, device)
+                            if plan_cache is not None
+                            else _upload_csr(g, device))
 
     def run_scoring():
         return [score_tiles(s, p.tile_start, o.min_score, metric_names=names,
-                            cap=p.cap, k=k, n=g.n, maxf2=max_factor2,
-                            w_bits=p.w_bits, deg16=p.deg16, device=device)
+                            k=k, device=device, n=g.n, maxf2=max_factor2,
+                            indices=indices, degrees=degrees,
+                            **_pass_kwargs(p))
                 for p, s in zip(passes, streams)]
 
+    # Mega-hub sources are scored on the host, once, sharing one expansion
+    # across the metrics; their wall time counts in the pass time, as the
+    # reference keeps every source in its timed loop.
+    host_rows, host_ms = {}, 0.0
+    if plan.host_src.size:
+        t0 = time.perf_counter()
+        host_rows = score_huge_sources_host_multi(
+            g, plan.host_src, specs, min_degree1, max_factor2, o.min_score,
+            k=max_edges, upper_only=plan.upper_only)
+        host_ms = (time.perf_counter() - t0) * 1e3
+
     ts, tops = measure_duration(run_scoring, device, repeat=o.repeat)
+    ts += host_ms
 
     results = {}
     for i, name in enumerate(names):
@@ -168,6 +215,8 @@ def predict_links_multi(
         parts = [(t.scores[i].cpu().numpy(), t.u[i].cpu().numpy(),
                   t.v[i].cpu().numpy()) for t in tops]
         t1 = time.perf_counter()
+        if name in host_rows:
+            parts.append(host_rows[name])
         scores, us, vs = (np.concatenate(x) for x in zip(*parts))
         valid = np.isfinite(scores)
         scores, us, vs = scores[valid], us[valid], vs[valid]
@@ -196,7 +245,7 @@ def predict_links(
     sources=None,
     key64: Optional[bool] = None,
     *,
-    device,
+    device="cuda",
 ) -> PredictResult:
     """Predict the top-``max_edges`` unobserved links of an undirected graph
     on ``device``.  ``min_degree1`` = 0 is IHub (scan all intermediates);

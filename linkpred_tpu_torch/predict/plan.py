@@ -4,10 +4,11 @@ Counterpart of ``linkpred_tpu/predict/plan.py``: the same host planner in
 NumPy (plus the native C++ expansion), producing the reference's plan field
 for field — ``tests/test_torch_plan.py`` pins that.  What differs:
 
-* the memory budgets are sized for an explicit target ``device``;
+* the memory budgets are sized for the target ``device`` (the card unless
+  the caller names the CPU);
 * ``TilePlan.device_stream(device, weighted)`` uploads torch tensors, once
-  per plan and device, and uploads ``slot_middeg`` only when a weighted
-  metric asks for it.
+  per plan and device (the slot stream, or the edge stream's ``fe_*`` rows),
+  and uploads the deg(mid) array only when a weighted metric asks for it.
 
 The plan: filter first-hop edges (u → mid) by the LHub mask
 ``deg(mid) <= min_degree1``; expand each into deg(mid) candidate slots,
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..graph import CSRGraph
+from ..utils.device import resolve_device
 from ..utils.numeric import next_pow2 as _next_pow2
 
 __all__ = ["TilePlan", "build_plan", "KILL"]
@@ -134,9 +136,7 @@ def _pad_tiles(t: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    # Edge stream (1-element dummies for packed plans).  The port scores
-    # packed plans only; the fields stay so plans compare field for field
-    # with the reference's.
+    # Edge stream (1-element dummies for packed plans).
     fe_work: np.ndarray    # int32[M1_pad] neighbours of mid expanded
     fe_adr: np.ndarray     # int32[M1_pad] offsets[mid] + skip
     fe_usrc: np.ndarray    # int32[M1_pad] source; killer rows store ~src
@@ -156,8 +156,8 @@ class TilePlan:
     packed: bool           # True => slot stream precomputed
     huge_plan: Optional["TilePlan"] = None  # device sub-plan for hub sources
     side_plan: Optional["TilePlan"] = None  # slots with a >16-bit degree
-    # Hubs whose expansion exceeds HUGE_DEVICE_MAX slots (host scorer in the
-    # reference; not ported yet).
+    # Hubs whose expansion exceeds HUGE_DEVICE_MAX slots (scored on the
+    # host, ``scoring.score_huge_sources_host_multi``).
     host_src: np.ndarray = dataclasses.field(
         default_factory=lambda: np.empty(0, dtype=np.int64))
     # Packed slot stream (None unless packed):
@@ -183,23 +183,25 @@ class TilePlan:
         return self.tile_slot_start if self.packed else self.tile_edge_start
 
     def device_stream(self, device, weighted: bool = False):
-        """The packed slot stream ``(slot_w, slot_u, slot_udeg, slot_wdeg,
-        slot_middeg)`` as torch tensors on ``device``, uploaded once per plan
-        and device.  ``slot_middeg`` (the AA/RA weight input) is uploaded only
-        when ``weighted``; otherwise it is None."""
-        if not self.packed:
-            raise NotImplementedError(
-                "edge-stream plans (packed=False) are not ported yet "
-                "(ROADMAP A8)")
+        """The plan's stream as torch tensors on ``device``, uploaded once
+        per plan and device: the packed slot stream ``(slot_w, slot_u,
+        slot_udeg, slot_wdeg, slot_middeg)``, or the edge stream ``(fe_work,
+        fe_adr, fe_usrc, fe_middeg)``.  The deg(mid) array (the AA/RA weight
+        input) is uploaded only when ``weighted``; otherwise it is None."""
         device = torch.device(device)
         d = self._device.setdefault(str(device), {})
+        if self.packed:
+            arrays = (self.slot_w, self.slot_u, self.slot_udeg,
+                      self.slot_wdeg)
+            middeg = self.slot_middeg
+        else:
+            arrays = (self.fe_work, self.fe_adr, self.fe_usrc)
+            middeg = self.fe_middeg
         if "stream" not in d:
-            d["stream"] = tuple(
-                torch.as_tensor(a, device=device)
-                for a in (self.slot_w, self.slot_u, self.slot_udeg,
-                          self.slot_wdeg))
+            d["stream"] = tuple(torch.as_tensor(a, device=device)
+                                for a in arrays)
         if weighted and "middeg" not in d:
-            d["middeg"] = torch.as_tensor(self.slot_middeg, device=device)
+            d["middeg"] = torch.as_tensor(middeg, device=device)
         return (*d["stream"], d.get("middeg") if weighted else None)
 
 
@@ -208,7 +210,7 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
                slot_budget: Optional[int] = None,
                sources: Optional[np.ndarray] = None,
                _keep_src: Optional[np.ndarray] = None,
-               _allow_huge: bool = True, *, device) -> TilePlan:
+               _allow_huge: bool = True, *, device="cuda") -> TilePlan:
     """Build the tile plan of ``g`` for scoring on ``device``.
 
     ``min_degree1`` = 0 is IHub; > 0 skips intermediates of higher degree.
@@ -217,8 +219,10 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
     ``cap=None`` picks the tile capacity adaptively (~``AUTO_CAP_TILES``
     tiles, clamped to [2^16, 2^21]).  ``slot_budget=None`` sizes the packed
     stream's ceiling from ``device``'s memory (``0`` forces the edge stream).
-    ``device`` sets the memory budgets only; planning is host work.
+    ``device`` sets the memory budgets only (the card by default; a
+    missing card raises); planning is host work.
     ``_keep_src``/``_allow_huge`` are internal (the hub sub-plan)."""
+    device = resolve_device(device)
     if slot_budget is None:
         slot_budget = _slot_budget(device)
     g = g.host()

@@ -7,11 +7,23 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["hbm_bytes", "auto_slot_budget", "auto_seg_lanes"]
+__all__ = ["resolve_device", "hbm_bytes", "auto_slot_budget",
+           "auto_seg_lanes"]
 
 # Budget basis for a CPU device: the reference's 16 GiB default, so a plan
 # built for the CPU equals the reference's CPU plan field for field.
 _DEFAULT_BYTES = 16 << 30
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises, so a call that did not name the CPU never runs there."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA card is available; pass "
+            "device='cpu' to run on the CPU (the kernels' plain versions)")
+    return device
 
 
 def hbm_bytes(device) -> int:

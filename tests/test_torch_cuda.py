@@ -15,11 +15,13 @@ import pytest
 import torch
 
 import linkpred_tpu_torch as lt
+from linkpred_tpu_torch.experiments import pallas_smoke, pallas_tail
 from linkpred_tpu_torch.kernels import _build
 from linkpred_tpu_torch.ops import compact
 from linkpred_tpu_torch.ops import fused_tail as ft
 from linkpred_tpu_torch.ops.topk import desc_key_score
 from linkpred_tpu_torch.predict import scoring
+from linkpred_tpu_torch.predict.plan import build_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -44,9 +46,11 @@ def test_kernels_build_and_load(cuda):
     assert lib.lp_pack_scratch_bytes(1 << 24) > 0
 
 
-def _tail_inputs(rng, cap, w_bits, run_len, wide, n_wt, device):
+def _tail_inputs(rng, cap, w_bits, run_len, wide, n_wt, device, kill=0.0):
     """A sorted tile: (w, u) pairs repeated ~run_len times, degrees constant
-    per pair, pads after ~95% real lanes."""
+    per pair, pads after ~95% real lanes.  With ``kill``, lo is the edge
+    stream's ``u << 1 | real``: each run's first lane is a killer, or all
+    its lanes are, with probability ``kill`` each; killer lanes weigh 0."""
     n_real = int(cap * 0.95)
     npair = max(n_real // run_len, 1)
     pid = rng.integers(0, npair, n_real)
@@ -64,31 +68,31 @@ def _tail_inputs(rng, cap, w_bits, run_len, wide, n_wt, device):
     degs = ([du, dw] if wide else
             [((du << 16) | dw).astype(np.uint32).view(np.int32)])
     wts = [(rng.random(cap) + 0.01).astype(np.float32) for _ in range(n_wt)]
+    if kill:
+        new = np.r_[True, (np.diff(w[:n_real]) != 0)
+                    | (np.diff(u[:n_real]) != 0)]
+        rid = np.cumsum(new) - 1
+        kind = rng.choice(3, int(new.sum()), p=[1 - 2 * kill, kill, kill])
+        real = np.ones(cap, bool)
+        real[np.flatnonzero(new)[kind == 1]] = False
+        real[:n_real][kind[rid] == 2] = False
+        real[n_real:] = rng.random(cap - n_real) < 0.5
+        for x in wts:
+            x[:n_real][~real[:n_real]] = 0.0
+        u = (u << 1) | real
     t = lambda a: torch.as_tensor(np.asarray(a).astype(  # noqa: E731
         np.float32 if np.asarray(a).dtype.kind == "f" else np.int32),
         device=device)
     return t(w), t(u), [t(d) for d in degs], [t(x) for x in wts]
 
 
-@pytest.mark.parametrize("cap,names,wide,min_score,maxf2,run_len", [
-    (1 << 16, UNWEIGHTED, False, 0.0, 0, 4),
-    (1 << 16, UNWEIGHTED, True, 0.0, 0, 4),
-    (100_003, ["jaccard_coefficient", "adamic_adar", "resource_allocation"],
-     False, 0.0, 0, 6),
-    (1 << 16, ["common_neighbors", "adamic_adar"], False, 0.0, 0, 5000),
-    (1 << 16, ["jaccard_coefficient"], False, 0.01, 0, 4),
-    (1 << 15, ["hub_promoted", "resource_allocation"], False, 0.0, 2, 4),
-])
-def test_fused_tail_kernel_vs_twin(rng, cuda, cap, names, wide, min_score,
-                                   maxf2, run_len):
-    mets = [lt.METRICS[m] for m in names]
-    n_wt = sum(m.needs_weight for m in mets)
-    hi, lo, degs, wts = _tail_inputs(rng, cap, 20, run_len, wide, n_wt, cuda)
-    kw = dict(metrics=mets, w_bits=20, n=1 << 20, maxf2=maxf2)
+def _kernel_vs_twin(hi, lo, degs, wts, min_score, mets, **kw):
     before = ft.LAUNCHES
-    kk, ku, kv = ft.fused_tail(hi, lo, degs, wts, min_score, **kw)
+    kk, ku, kv = ft.fused_tail(hi, lo, degs, wts, min_score, metrics=mets,
+                               **kw)
     assert ft.LAUNCHES == before + 1
-    rk, ru, rv = ft.fused_tail_reference(hi, lo, degs, wts, min_score, **kw)
+    rk, ru, rv = ft.fused_tail_reference(hi, lo, degs, wts, min_score,
+                                         metrics=mets, **kw)
     assert torch.equal(ku, ru) and torch.equal(kv, rv)
     for i, m in enumerate(mets):
         if not m.needs_weight:
@@ -99,6 +103,60 @@ def test_fused_tail_kernel_vs_twin(rng, cuda, cap, names, wide, min_score,
         np.testing.assert_array_equal(np.isinf(a), np.isinf(b))
         fin = np.isfinite(b)
         np.testing.assert_allclose(a[fin], b[fin], rtol=1e-5)
+    return kk
+
+
+@pytest.mark.parametrize("cap,names,wide,min_score,maxf2,run_len", [
+    (1 << 16, UNWEIGHTED, False, 0.0, 0, 4),
+    (1 << 16, UNWEIGHTED, True, 0.0, 0, 4),
+    (100_003, ["jaccard_coefficient", "adamic_adar", "resource_allocation"],
+     False, 0.0, 0, 6),
+    (1 << 16, ["common_neighbors", "adamic_adar"], False, 0.0, 0, 5000),
+    (1 << 16, ["jaccard_coefficient"], False, 0.01, 0, 4),
+    (1 << 15, ["hub_promoted", "resource_allocation"], False, 0.0, 2, 4),
+    # 4,096 kernel blocks: the block scan's several-blocks-per-thread loop
+    (1 << 23, ["jaccard_coefficient", "adamic_adar"], False, 0.0, 0, 3000),
+])
+def test_fused_tail_kernel_vs_twin(rng, cuda, cap, names, wide, min_score,
+                                   maxf2, run_len):
+    mets = [lt.METRICS[m] for m in names]
+    n_wt = sum(m.needs_weight for m in mets)
+    hi, lo, degs, wts = _tail_inputs(rng, cap, 20, run_len, wide, n_wt, cuda)
+    _kernel_vs_twin(hi, lo, degs, wts, min_score, mets, w_bits=20,
+                    n=1 << 20, maxf2=maxf2)
+
+
+@pytest.mark.parametrize("cap,names,wide,min_score,maxf2,run_len", [
+    (1 << 16, UNWEIGHTED, False, 0.0, 0, 4),
+    (1 << 16, UNWEIGHTED, True, 0.001, 0, 4),
+    (100_003, ["jaccard_coefficient", "adamic_adar", "resource_allocation"],
+     False, 0.0, 2, 6),
+    (1 << 16, ["adamic_adar", "resource_allocation"], True, 0.0, 0, 8),
+    (1 << 16, ["common_neighbors", "adamic_adar"], False, 0.0, 0, 5000),
+    (1 << 23, ["jaccard_coefficient", "adamic_adar"], False, 0.0, 0, 3000),
+])
+def test_fused_tail_killers_kernel_vs_twin(rng, cuda, cap, names, wide,
+                                           min_score, maxf2, run_len):
+    """K1's killer branch (edge stream): runs are (w, lo >> 1), a run is
+    alive iff its first lane is real; long runs cross the kernel's
+    2,048-lane blocks with their killer in the earlier block."""
+    mets = [lt.METRICS[m] for m in names]
+    n_wt = sum(m.needs_weight for m in mets)
+    hi, lo, degs, wts = _tail_inputs(rng, cap, 20, run_len, wide, n_wt, cuda,
+                                     kill=0.2)
+    kk = _kernel_vs_twin(hi, lo, degs, wts, min_score, mets, w_bits=20,
+                         n=1 << 20, maxf2=maxf2, killers=True)
+    h, l_ = hi.cpu().numpy(), lo.cpu().numpy()
+    start = np.flatnonzero(np.r_[True, (np.diff(h) != 0)
+                                 | (np.diff(l_ >> 1) != 0)])
+    end = np.r_[start[1:], cap] - 1
+    dead = (l_[start] & 1) == 0
+    assert dead.any() and not dead.all(), "test premise"
+    assert np.all(desc_key_score(kk[0]).cpu().numpy()[end[dead]]
+                  == -np.inf), "a killed run scored"
+    if run_len > 2048:
+        crosses = dead & (start // 2048 != end // 2048)
+        assert crosses.any(), "test premise: killed runs cross blocks"
 
 
 @pytest.mark.parametrize("dist", ["random", "clustered", "none", "all"])
@@ -143,3 +201,69 @@ def test_predict_cuda_matches_cpu(rng, cuda, monkeypatch, d1):
         cut = b.score.min() * (1 + 1e-5)
         assert ({(u, v) for u, v, s in zip(a.u, a.v, a.score) if s > cut}
                 == {(u, v) for u, v, s in zip(b.u, b.v, b.score) if s > cut})
+
+
+def _same_results(got, want):
+    for name, spec in lt.METRICS.items():
+        if name not in got:
+            continue
+        a, b = got[name], want[name]
+        assert len(a) == len(b) > 0, name
+        if spec.needs_weight:
+            np.testing.assert_allclose(np.sort(a.score), np.sort(b.score),
+                                       rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(np.sort(a.score), np.sort(b.score))
+        cut = b.score.min() * (1 + 1e-5)
+        assert ({(u, v) for u, v, s in zip(a.u, a.v, a.score) if s > cut}
+                == {(u, v) for u, v, s in zip(b.u, b.v, b.score) if s > cut})
+
+
+@pytest.mark.parametrize("d1,keyed,sources", [
+    (0, True, None), (4, True, None), (0, False, None),
+    (0, True, np.array([3, 17, 42, 99])),
+])
+def test_edge_stream_cuda_matches_cpu(rng, cuda, d1, keyed, sources):
+    """A forced edge stream (slot_budget=0): keyed (K1's killer branch) and
+    sentinel, full graph and serving mode, on the card against the CPU."""
+    import dataclasses
+
+    n, m = 300, 1800
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    g = lt.from_edges(np.concatenate([src, dst]), np.concatenate([dst, src]),
+                      n=n)
+    names = list(lt.METRICS)
+    out = {}
+    for dev in (cuda, "cpu"):
+        p = build_plan(g, d1, 1024, slot_budget=0, sources=sources,
+                       device=dev)
+        assert not p.packed
+        before = ft.LAUNCHES
+        out[str(dev)] = lt.predict_links_multi(
+            g, names, min_degree1=d1, sources=sources, device=dev,
+            plan=p if keyed else dataclasses.replace(p, keyed=False),
+            options=lt.PredictOptions(max_edges=500))
+        if dev != "cpu":
+            assert (ft.LAUNCHES > before) == keyed
+    _same_results(out[str(cuda)], out["cpu"])
+
+
+def test_p1_kernel_vs_xla_tail(rng, cuda):
+    """P1: K1 at the prototype's configuration, bit-equal to the plain
+    copy of its XLA tail."""
+    hi, lo, dpack = (torch.as_tensor(a, device=cuda)
+                     for a in pallas_tail.make_stream(rng, 1 << 18))
+    before = ft.LAUNCHES
+    got = pallas_tail.pallas_tail(hi, lo, dpack, 0.0)
+    assert ft.LAUNCHES == before + 1
+    for a, b in zip(got, pallas_tail.xla_tail(hi, lo, dpack, 0.0)):
+        assert torch.equal(a, b)
+
+
+def test_p5_kernel(cuda):
+    x = torch.arange(-512, 512, dtype=torch.int32, device=cuda).reshape(8, 128)
+    x[0, 0] = (1 << 31) - 1
+    before = pallas_smoke.LAUNCHES
+    got = pallas_smoke.affine_smoke(x)
+    assert pallas_smoke.LAUNCHES == before + 1
+    assert torch.equal(got, pallas_smoke.affine_smoke_reference(x))

@@ -1,7 +1,9 @@
 """K1, the fused post-sort tail: the port's plain twin against the JAX
 package's Pallas ``fused_tail`` (interpret mode on the CPU) and against the
-reference's XLA tail (``_keyed_sort_reduce`` with ``fused=False``).  The
-CUDA kernel against the twin is in test_torch_cuda.py.
+reference's XLA tail (``_keyed_sort_reduce`` with ``fused=False``), in both
+branches: the packed stream's clean lanes and the edge stream's killer
+lanes (``lo = u << 1 | real``).  The CUDA kernel against the twin is in
+test_torch_cuda.py.
 
 Tolerances: keys, ku and kw bit-equal for the unweighted metrics, except
 Salton's scores, within 2 ulp of the reference (its XLA rewrites
@@ -53,8 +55,29 @@ def _pairs(rng, cap, w_bits, fill, run_len, wide):
     return w, u, du, dw, wts
 
 
-def _sorted_stream(rng, cap, w_bits, fill=0.9, run_len=6, wide=False):
+def _killer_lo(rng, w, u, wts, fill, kill):
+    """Edge-stream payloads ``u << 1 | real``: each (w, u) pair of the real
+    lanes has, with probability ``kill`` each, one killer lane or only
+    killer lanes; killer lanes carry weight 0.  Pads get random flags."""
+    cap = w.shape[0]
+    n_real = int(cap * fill)
+    key = w[:n_real] * (1 << 31) + u[:n_real]
+    _, first, pid = np.unique(key, return_index=True, return_inverse=True)
+    kind = rng.choice(3, first.shape[0], p=[1 - 2 * kill, kill, kill])
+    real = np.ones(cap, bool)
+    real[first[kind == 1]] = False                # one killer lane
+    real[:n_real][kind[pid] == 2] = False         # killer-only runs
+    real[n_real:] = rng.random(cap - n_real) < 0.5
+    for x in wts:
+        x[:n_real][~real[:n_real]] = 0.0
+    return (u << 1) | real
+
+
+def _sorted_stream(rng, cap, w_bits, fill=0.9, run_len=6, wide=False,
+                   kill=0.0):
     w, u, du, dw, wts = _pairs(rng, cap, w_bits, fill, run_len, wide)
+    if kill:
+        u = _killer_lo(rng, w, u, wts, fill, kill)
     order = np.lexsort((u, w))
     w, u, du, dw = w[order], u[order], du[order], dw[order]
     wts = [x[order] for x in wts]
@@ -105,7 +128,8 @@ def _assert_keys(port_keys, ref_keys_u32, names):
 
 
 CASES = {
-    # name: (cap, w_bits, metrics, wide, min_score, maxf2, fill, run_len)
+    # name: (cap, w_bits, metrics, wide, min_score, maxf2, fill, run_len
+    #        [, killer fraction])
     "deg16_jaccard_256": (256, 10, ("jaccard_coefficient",), False, 0.0, 0,
                           0.9, 6),
     "deg16_jaccard_4096": (4096, 12, ("jaccard_coefficient",), False, 0.0, 0,
@@ -122,17 +146,34 @@ CASES = {
                              False, 0.0, 0, 1.0, 700),
     "wide_aa_ra": (1024, 11, ("adamic_adar", "resource_allocation"), True,
                    0.0, 0, 0.95, 10),
+    # the edge stream's killer branch
+    "killers_deg16_jaccard": (4096, 12, ("jaccard_coefficient",), False,
+                              0.0, 0, 0.9, 6, 0.2),
+    "killers_wide_all7_min_score": (2048, 12, tuple(UNWEIGHTED), True,
+                                    0.001, 0, 0.8, 4, 0.2),
+    "killers_aa_ra_maxf2": (4096, 12, ("adamic_adar", "jaccard_coefficient",
+                                       "resource_allocation"), False, 0.0,
+                            2, 0.9, 8, 0.2),
+    "killers_wide_aa_ra": (1024, 11, ("adamic_adar", "resource_allocation"),
+                           True, 0.0, 0, 0.95, 10, 0.3),
+    "killers_only_runs": (1024, 10, ("common_neighbors", "adamic_adar"),
+                          False, 0.0, 0, 1.0, 5, 0.45),
+    "killers_long_runs": (4096, 12, ("common_neighbors", "adamic_adar"),
+                          False, 0.0, 0, 1.0, 700, 0.3),
 }
 
 
 def _inputs(rng, case):
-    cap, w_bits, names, wide, min_score, maxf2, fill, run_len = CASES[case]
-    hi, lo, degs, wts = _sorted_stream(rng, cap, w_bits, fill, run_len, wide)
+    cap, w_bits, names, wide, min_score, maxf2, fill, run_len, *kill = \
+        CASES[case]
+    kill = kill[0] if kill else 0.0
+    hi, lo, degs, wts = _sorted_stream(rng, cap, w_bits, fill, run_len, wide,
+                                       kill)
     names = list(names)
     n_wt = sum(port_metrics.METRICS[n].needs_weight for n in names)
     return dict(hi=hi, lo=lo, degs=degs, wts=wts[:n_wt], names=names,
                 w_bits=w_bits, n=1 << w_bits, min_score=min_score,
-                maxf2=maxf2)
+                maxf2=maxf2, killers=bool(kill))
 
 
 def _port(x, device="cpu", fn=ft.fused_tail):
@@ -140,18 +181,21 @@ def _port(x, device="cpu", fn=ft.fused_tail):
     out = fn(t(x["hi"]), t(x["lo"]), [t(d) for d in x["degs"]],
              [t(w) for w in x["wts"]], x["min_score"],
              metrics=[port_metrics.METRICS[m] for m in x["names"]],
-             w_bits=x["w_bits"], n=x["n"], maxf2=x["maxf2"])
+             w_bits=x["w_bits"], n=x["n"], maxf2=x["maxf2"],
+             killers=x.get("killers", False))
     return [o.cpu().numpy() for o in out]
 
 
 def _ref(x):
+    killers = x.get("killers", False)
     hi, lo = jnp.asarray(x["hi"]), jnp.asarray(x["lo"])
-    neq = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    src = lo >> 1 if killers else lo
+    neq = (hi[1:] != hi[:-1]) | (src[1:] != src[:-1])
     out = ref_ft.fused_tail(
         hi, lo, tuple(jnp.asarray(d) for d in x["degs"]),
         [jnp.asarray(w) for w in x["wts"]], neq, jnp.float32(x["min_score"]),
         metrics=tuple(ref_metrics.METRICS[m] for m in x["names"]),
-        w_bits=x["w_bits"], n=x["n"], maxf2=x["maxf2"])
+        w_bits=x["w_bits"], n=x["n"], maxf2=x["maxf2"], killers=killers)
     return [np.asarray(o) for o in out]
 
 
@@ -164,9 +208,21 @@ def test_twin_vs_pallas_fused_tail(rng, case):
     _assert_keys(pk, rk, x["names"])
     np.testing.assert_array_equal(pu, ru)
     np.testing.assert_array_equal(pv, rv)
-    if case == "long_runs_cross_rows":
+    if case.endswith("long_runs_cross_rows") or case == "killers_long_runs":
         runs = np.diff(np.flatnonzero(np.diff(x["hi"]) | np.diff(x["lo"])))
         assert runs.max() > 256, "test premise: runs span several rows"
+    if x["killers"]:
+        real = x["lo"] & 1
+        ends = np.flatnonzero(np.diff(x["hi"]) | np.diff(x["lo"] >> 1))
+        starts = np.concatenate([[0], ends + 1])
+        rid = np.repeat(np.arange(len(starts)), np.diff(np.append(
+            starts, len(real))))
+        n_real = np.bincount(rid, weights=real)
+        dead = real[starts] == 0
+        # test premise: some runs are killed with real lanes in them, some
+        # hold only killers; and the twin scores no dead run
+        assert (dead & (n_real > 0)).any() and (n_real == 0).any()
+        assert np.all(_decode(_to_u32(pk[0]))[dead[rid]] == -np.inf)
 
 
 @pytest.mark.parametrize("lanes", ["one_run", "all_distinct"])
@@ -189,21 +245,30 @@ def test_twin_degenerate_runs(rng, lanes):
 
 
 @pytest.mark.parametrize("case", ["deg16_all7_min_score", "aa_ra_mixed",
-                                  "wide_all7", "maxf2"])
+                                  "wide_all7", "maxf2",
+                                  "killers_deg16_jaccard",
+                                  "killers_wide_all7_min_score",
+                                  "killers_aa_ra_maxf2", "killers_only_runs"])
 def test_twin_vs_reference_xla_tail(rng, case):
     """The whole keyed reduce (sort + tail) against the reference's key64
-    XLA tail on the same unsorted lanes."""
-    cap, w_bits, names, wide, min_score, maxf2, fill, run_len = CASES[case]
+    XLA tail on the same unsorted lanes.  Killer cases pack the deg16 pair
+    before the sort, as the edge stream does (``predpacked=False``)."""
+    cap, w_bits, names, wide, min_score, maxf2, fill, run_len, *kill = \
+        CASES[case]
+    killers = bool(kill)
     w, u, du, dw, wts = _pairs(rng, cap, w_bits, fill, run_len, wide)
+    if killers:
+        u = _killer_lo(rng, w, u, wts, fill, kill[0])
     perm = rng.permutation(cap)
     w, u, du, dw = w[perm], u[perm], du[perm], dw[perm]
     n_wt = sum(port_metrics.METRICS[n].needs_weight for n in names)
     wts = [x[perm] for x in wts[:n_wt]]
-    if wide:
-        udeg, wdeg = du.astype(np.int32), dw.astype(np.int32)
-    else:
+    predpacked = not wide and not killers
+    if predpacked:
         udeg = ((du << 16) | dw).astype(np.uint32).view(np.int32)
         wdeg = udeg
+    else:
+        udeg, wdeg = du.astype(np.int32), dw.astype(np.int32)
     w, u = w.astype(np.int32), u.astype(np.int32)
     rmets = tuple(ref_metrics.METRICS[m] for m in names)
 
@@ -212,8 +277,8 @@ def test_twin_vs_reference_xla_tail(rng, case):
         return ref_scoring._keyed_sort_reduce(
             w, u, udeg, wdeg, wts, [m for m in rmets if m.needs_weight],
             rmets, w_bits=w_bits, n=1 << w_bits, maxf2=maxf2,
-            min_score=jnp.float32(min_score), deg16=not wide, killers=False,
-            predpacked=not wide, key64=True, fused=False)
+            min_score=jnp.float32(min_score), deg16=not wide,
+            killers=killers, predpacked=predpacked, key64=True, fused=False)
 
     scores, rku, rkw = ref_reduce(
         jnp.asarray(w), jnp.asarray(u), jnp.asarray(udeg), jnp.asarray(wdeg),
@@ -222,7 +287,8 @@ def test_twin_vs_reference_xla_tail(rng, case):
     pk, pku, pkw = port_scoring._keyed_sort_reduce(
         t(w), t(u), t(udeg), t(wdeg), [t(x) for x in wts],
         [port_metrics.METRICS[m] for m in names], w_bits=w_bits,
-        n=1 << w_bits, maxf2=maxf2, min_score=min_score, deg16=not wide)
+        n=1 << w_bits, maxf2=maxf2, min_score=min_score, deg16=not wide,
+        killers=killers, predpacked=predpacked)
     np.testing.assert_array_equal(pku.numpy(), np.asarray(rku))
     np.testing.assert_array_equal(pkw.numpy(), np.asarray(rkw))
     got = _to_u32(pk.numpy())
@@ -238,3 +304,16 @@ def test_wrapper_refuses_other_devices():
                       metrics=[port_metrics.METRICS["common_neighbors"]],
                       w_bits=8, n=256)
 
+
+def test_pack_pair_sign_bit():
+    """The edge stream packs the deg16 pair on the device: a deg(u) of
+    2^15 or more sets the int32 sign bit, and the tail unpacks it
+    unsigned."""
+    du = torch.tensor([1, 32767, 32768, 40000, 65535], dtype=torch.int32)
+    dw = torch.tensor([65535, 1, 7, 40000, 65535], dtype=torch.int32)
+    got = port_scoring.pack_pair(du, dw)
+    want = ((du.numpy().astype(np.uint32) << np.uint32(16))
+            | dw.numpy().astype(np.uint32)).view(np.int32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    ud, wd = ft._unpack((got,))
+    assert torch.equal(ud, du) and torch.equal(wd, dw)

@@ -15,6 +15,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now raises
 sys.path.insert(0, sys.argv[1])
 import numpy as np
+import torch
 import linkpred_tpu_torch as lt
 for m in pkgutil.walk_packages(lt.__path__, "linkpred_tpu_torch."):
     importlib.import_module(m.name)
@@ -25,6 +26,14 @@ g = lt.from_edges(np.concatenate([src, dst]), np.concatenate([dst, src]),
 res = lt.predict_links(g, "jaccard", min_degree1=0, device="cpu",
                        options=lt.PredictOptions(max_edges=10))
 assert len(res) == 10 and np.all(np.diff(res.score) <= 0), res
+from linkpred_tpu_torch.predict.plan import build_plan
+edge = build_plan(g, 0, 256, slot_budget=0, device="cpu")
+assert not edge.packed
+res_e = lt.predict_links(g, "jaccard", min_degree1=0, plan=edge,
+                         device="cpu", options=lt.PredictOptions(max_edges=10))
+assert np.array_equal(res_e.score, res.score), (res_e.score, res.score)
+from linkpred_tpu_torch.experiments.pallas_smoke import affine_smoke
+assert affine_smoke(torch.arange(3, dtype=torch.int32)).tolist() == [1, 3, 5]
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "linkpred_tpu"))]
 assert not bad, bad

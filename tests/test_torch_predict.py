@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import powerlaw_graph, random_graph
 from oracle import oracle_scores
@@ -234,16 +235,42 @@ def test_plan_cache_reuses_plans(rng):
 
 
 def test_not_ported_paths_raise(rng, monkeypatch):
-    gp = _port_graph(random_graph(rng, 100, 4))
+    """``mesh=`` and ``key64=False`` still raise; edge-stream plans and
+    mega-hub sources (``host_src``) now give the reference's results."""
+    gr = random_graph(rng, 100, 4)
+    gp = _port_graph(gr)
     with pytest.raises(NotImplementedError, match="A10"):
         lt.predict_links(gp, "cn", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="int64 key"):
         lt.predict_links(gp, "cn", key64=False, device="cpu")
+    opts = dict(max_edges=5000)
     edge = plan.build_plan(gp, 0, 1024, slot_budget=0, device="cpu")
     assert not edge.packed
-    with pytest.raises(NotImplementedError, match="A8"):
-        lt.predict_links(gp, "cn", min_degree1=0, plan=edge, device="cpu")
+    got = lt.predict_links(gp, "cn", min_degree1=0, plan=edge, device="cpu",
+                           options=lt.PredictOptions(**opts))
+    want = lp.predict_links(gr, "cn", min_degree1=0, cap=1024,
+                            options=lp.PredictOptions(**opts))
+    _assert_same_result(got, want, "common_neighbors")
     monkeypatch.setattr(plan, "HUGE_DEVICE_MAX", 1)
-    with pytest.raises(NotImplementedError, match="host_src"):
-        lt.predict_links(gp, "cn", min_degree1=0, cap=8, device="cpu")
+    monkeypatch.setattr(ref_plan, "HUGE_DEVICE_MAX", 1)
+    assert plan.build_plan(gp, 0, 8, device="cpu").host_src.size
+    got = lt.predict_links(gp, "cn", min_degree1=0, cap=8, device="cpu",
+                           options=lt.PredictOptions(**opts))
+    want = lp.predict_links(gr, "cn", min_degree1=0, cap=8,
+                            options=lp.PredictOptions(**opts))
+    _assert_same_result(got, want, "common_neighbors")
+
+
+def test_entry_points_default_to_the_card(rng, monkeypatch):
+    """Without ``device=`` every entry point targets the CUDA card; with no
+    card it raises rather than run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gp = _port_graph(random_graph(rng, 60, 4))
+    for call in (lambda: lt.predict_links(gp, "cn"),
+                 lambda: lt.predict_links_multi(gp, ["cn", "aa"]),
+                 lambda: plan.build_plan(gp, 0),
+                 lambda: lt.PlanCache().get(gp, 0, None),
+                 lambda: lt.PlanCache().device_graph(gp)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
 
