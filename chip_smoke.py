@@ -11,6 +11,11 @@ the bench protocol:
   RMAT-18 with the card's own budgets: the edge stream (K1's killer branch,
   selection by segment) plus the packed hub sub-plan.
 
+Phase 7 drives the JAX package's sort-feasibility probes as ported: P2 and
+P3 (the bitonic network, ``bitonic.cu``) at 2^18-2^21 lanes against their
+plain version and ``torch.sort``, and the radix probe (``torch.sort``, K2
+at ``ratio=1`` as a 1-bit split, P4's dynamic stores in ``dynstore.cu``).
+
     python3 chip_smoke.py [scale]
 
 ``scale`` (default 19) sets the R-MAT scale of the LHub path.  Run from the
@@ -41,6 +46,14 @@ KERNELS = [
      "experiments/pallas_tail.py:178"),
     ("affine_smoke", "linkpred_tpu_torch/kernels/csrc/smoke.cu",
      "experiments/pallas_smoke.py:14"),
+    # P2's row covers both of its pallas_calls: make_pallas_sort (:115) and
+    # make_pallas_sort_kv (:95)
+    ("make_pallas_sort", "linkpred_tpu_torch/kernels/csrc/bitonic.cu",
+     "experiments/pallas_bitonic.py:115"),
+    ("make_sort", "linkpred_tpu_torch/kernels/csrc/bitonic.cu",
+     "experiments/pallas_bitonic2.py:104"),
+    ("dynstore_run", "linkpred_tpu_torch/kernels/csrc/dynstore.cu",
+     "experiments/radix_probe.py:118"),
 ]
 # The card's memory rate and float32 rate outside the tensor cores
 # (H100 SXM data sheet): the roofline of every kernel here.
@@ -917,6 +930,197 @@ def phase_ihub(device, scale: int = 18):
     return launches
 
 
+# ------------------------------------------------ phase 7: the sort probes
+
+# log2 of the bitonic sizes timed: where the TPU measured P2 and P3, and the
+# engine's tile sizes (the middle one is the record's headline); the radix
+# probe's own size
+SORT_SIZES = (18, 20, 21)
+RADIX_LOG2 = 21
+
+
+def dup_keys(rng, n: int) -> np.ndarray:
+    """Duplicate-heavy int32 keys over the full range: n draws from 1,024
+    values."""
+    vals = rng.integers(-(1 << 31), 1 << 31, 1024, dtype=np.int64)
+    return vals[rng.integers(0, 1024, n)].astype(np.int32)
+
+
+def bitonic_vs_plain(device, rng, log2n: int):
+    """The bitonic kernel through P2 keys-only, P2 kv and P3 kv (and P3
+    without payload) on duplicate-heavy keys, against its plain version bit
+    for bit (keys and payload), against ``torch.sort`` (keys), with the
+    payload a permutation and ``x[p] == k``; the inputs stay unwritten.
+    Returns the card tensors (x, payload)."""
+    import torch
+    from linkpred_tpu_torch.experiments import pallas_bitonic as p2
+    from linkpred_tpu_torch.experiments import pallas_bitonic2 as p3
+
+    n = 1 << log2n
+    shape = (n // p2.LANES, p2.LANES)
+    x = torch.as_tensor(dup_keys(rng, n), device=device).reshape(shape)
+    pay = torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
+    x0, pay0 = x.clone(), pay.clone()
+    plain_k, plain_p = p2.bitonic_stages(x, n, payload=pay)
+    got = {"P2 keys": (p2.make_pallas_sort(n)(x), None),
+           "P2 kv": p2.make_pallas_sort_kv(n)(x, pay),
+           "P3 kv": p3.make_sort(n)(x, pay)}
+    k_np, p_np = p3.make_sort(n, with_payload=False)(x, pay)
+    torch.cuda.synchronize()
+    where = f"bitonic 2^{log2n}"
+    check(torch.equal(x, x0) and torch.equal(pay, pay0),
+          f"{where}: the input was written")
+    check(torch.equal(k_np, plain_k) and torch.equal(p_np, pay),
+          f"{where}: P3 without payload != plain keys + the payload as given")
+    want = torch.sort(x.reshape(-1)).values
+    flat_x = x.reshape(-1)
+    for name, (k, p) in got.items():
+        check(torch.equal(k, plain_k), f"{where} {name}: keys != plain")
+        check(torch.equal(k.reshape(-1), want),
+              f"{where} {name}: keys != torch.sort")
+        if p is None:
+            continue
+        check(torch.equal(p, plain_p), f"{where} {name}: payload != plain")
+        perm = p.reshape(-1).long()
+        check(torch.equal(torch.sort(perm).values,
+                          torch.arange(n, device=device)),
+              f"{where} {name}: payload not a permutation")
+        check(torch.equal(flat_x[perm], k.reshape(-1)),
+              f"{where} {name}: x[p] != k")
+    ties = n - int(torch.unique(flat_x).numel())
+    print(f"  {where}: P2 keys, P2 kv, P3 kv (and P3 without payload) == "
+          f"plain bit for bit, keys == torch.sort, x[p] == k; {ties} tied "
+          "lanes")
+    return x, pay
+
+
+def time_bitonic(device, x, pay):
+    """Kernel, ``torch.sort`` (+ gather) and plain version on the same card
+    tensors: keys-only through P2, key-value through P2 and P3."""
+    import torch
+    from linkpred_tpu_torch.experiments import pallas_bitonic as p2
+    from linkpred_tpu_torch.experiments import pallas_bitonic2 as p3
+
+    n = x.numel()
+    m = n.bit_length() - 1
+    compares = m * (m + 1) // 2 * n // 2
+    flat, pflat = x.reshape(-1), pay.reshape(-1)
+    ks, js = p3.stage_table(n)
+
+    def kv_library():
+        v, idx = torch.sort(flat)
+        return v, pflat[idx]
+
+    f, fkv, f3 = (p2.make_pallas_sort(n), p2.make_pallas_sort_kv(n),
+                  p3.make_sort(n))
+    keys = dict(ms=cuda_ms(lambda: f(x)),
+                plain_ms=cuda_ms(lambda: p2.bitonic_stages(x, n), 3),
+                library_ms=cuda_ms(lambda: torch.sort(flat)),
+                **bound(8 * n, compares))
+    lib_kv = cuda_ms(kv_library)
+    kv = dict(ms=cuda_ms(lambda: fkv(x, pay)),
+              plain_ms=cuda_ms(lambda: p2.bitonic_stages(x, n, payload=pay),
+                               3),
+              library_ms=lib_kv, **bound(16 * n, compares))
+    table = dict(ms=cuda_ms(lambda: f3(x, pay)),
+                 plain_ms=cuda_ms(lambda: p3.table_stages(x, pay, ks, js), 3),
+                 library_ms=lib_kv, **bound(16 * n, compares))
+    for name, t in (("P2 keys", keys), ("P2 kv", kv), ("P3 kv", table)):
+        print(f"  {name} 2^{m}: kernel {t['ms']:.4f} ms, torch.sort"
+              f"{'' if name == 'P2 keys' else ' + gather'} "
+              f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return keys, kv, table
+
+
+def phase_sort_probes(device, rng):
+    """The sort-feasibility probes: P2 and P3 (the bitonic kernel) and the
+    radix probe (its sort and 1-bit split columns and P4, the dynamic-store
+    kernel), each driven through its ``run``/``main`` with the launch
+    counts zeroed just before and read just after; then each kernel against
+    its plain version, and the timings beside the bounds."""
+    import torch
+    from linkpred_tpu_torch.experiments import pallas_bitonic as p2
+    from linkpred_tpu_torch.experiments import pallas_bitonic2 as p3
+    from linkpred_tpu_torch.experiments import radix_probe as rp
+    from linkpred_tpu_torch.ops import compact
+
+    # the probes' paths: P2/P3 at 2^18 (where the TPU measured them) and at
+    # the engine's tile sizes; the radix probe at its own 2^21 lanes
+    p2.LAUNCHES = p3.LAUNCHES = rp.LAUNCHES = compact.LAUNCHES = 0
+    for m in SORT_SIZES:
+        p2.run(m, payload=True, device=device)
+        p3.run(m, device=device)
+    # ten calls per timing: with the probe's three, one slow first call of
+    # make_run(1) skewed (t_8 - t_1) / 7 by a third on the card
+    radix = rp.main(["--lanes-log2", str(RADIX_LOG2), "--repeat", "10"])
+    launches = {"make_pallas_sort": p2.LAUNCHES, "make_sort": p3.LAUNCHES,
+                "dynstore_run": rp.LAUNCHES,
+                "pack_survivors": compact.LAUNCHES}
+    print(f"  launches in the probes' paths: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"sort probes: a kernel never launched: {launches}")
+
+    timed = {}
+    for m in (12,) + SORT_SIZES:
+        x, pay = bitonic_vs_plain(device, rng, m)
+        if m in SORT_SIZES:
+            timed[m] = time_bitonic(device, x, pay)
+        del x, pay
+
+    # P4 at the probe's shape
+    offs, xs = (torch.as_tensor(a, device=device)
+                for a in rp.dynstore_inputs(np.random.default_rng(5)))
+    for iters in (1, 32):
+        got = rp.dynstore_run(iters, offs, xs)
+        want = rp.dynstore_reference(iters, offs, xs)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"P4 iters={iters}: kernel != plain")
+    untouched = int((got == rp.INT32_MIN).all(dim=1).sum())
+    p4 = dict(ms=cuda_ms(lambda: rp.dynstore_run(32, offs, xs)),
+              plain_ms=cuda_ms(lambda: rp.dynstore_reference(32, offs, xs),
+                               2),
+              **bound(4 * (rp.NSTORES + 2 * rp.ROWS * rp.COLS),
+                      32 * rp.NSTORES * rp.BLK * rp.COLS))
+    print(f"  P4 dynstore (512, 128), 256 stores: kernel == plain at iters 1 "
+          f"and 32 ({untouched} rows untouched); at iters 32 kernel "
+          f"{p4['ms']:.4f} ms, plain {p4['plain_ms']:.4f} ms, bound "
+          f"{p4['bound_ms']:.6f} ms; {radix['per_store_us']:.5f} us per "
+          "store (radix probe)")
+
+    # K2 at ratio=1 on the 1-bit split's lanes: every survivor fits
+    key = rp.pack_keys(np.random.default_rng(1), 1 << RADIX_LOG2, device) \
+        ^ 0x5A5A5
+    thr = torch.tensor(rp.SPLIT_THR, dtype=torch.int32, device=device)
+    out = compact.pack_survivors(key, thr, ratio=1)
+    ref = compact.pack_survivors_reference(key, thr, ratio=1)
+    torch.cuda.synchronize()
+    for a, b, what in zip(out, ref, ("keys", "indices", "count")):
+        check(torch.equal(a, b), f"K2 ratio=1: {what} differ")
+    count = int(out[2])
+    check(0 < count < key.numel() and out[0].numel() == key.numel(),
+          f"K2 ratio=1: {count} survivors of {key.numel()}")
+    print(f"  K2 at ratio=1 on 2^{RADIX_LOG2} split lanes: {count} "
+          "survivors, kernel == plain")
+
+    def row(t, extra):
+        return dict(max_abs_err=0.0, **t, **extra)
+
+    head = SORT_SIZES[1]
+    by_size = lambda i: {f"2^{m}": timed[m][i]  # noqa: E731
+                         for m in SORT_SIZES if m != head}
+    keys, kv, table = timed[head]
+    p2_row = row(keys, dict(launches=launches["make_pallas_sort"],
+                            shape=f"2^{head} keys", kv=kv,
+                            kv_by_size=by_size(1), keys_by_size=by_size(0)))
+    p3_row = row(table, dict(launches=launches["make_sort"],
+                             shape=f"2^{head} key-value", by_size=by_size(2)))
+    p4_row = row(p4, dict(launches=launches["dynstore_run"],
+                          shape="iters 32", library_ms=None,
+                          per_store_us=radix["per_store_us"]))
+    return p2_row, p3_row, p4_row, launches["pack_survivors"]
+
+
 def main() -> int:
     import torch
 
@@ -961,6 +1165,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("phase 6: the IHub path, RMAT-18 on the edge stream")
     ihub = phase_ihub(device, 18)
+    torch.cuda.empty_cache()
+    phase("phase 7: the sort probes P2, P3 (bitonic) and P4 (radix probe)")
+    p2, p3, p4, probe_packs = phase_sort_probes(device, rng)
     phase("done")
 
     stats = {
@@ -969,11 +1176,17 @@ def main() -> int:
             launches_by_path={"lhub": lhub["fused_tail"],
                               "ihub": ihub["fused_tail"]}, **k1),
         "pack_survivors": dict(
-            launches=lhub["pack_survivors"] + ihub["pack_survivors"],
+            launches=lhub["pack_survivors"] + ihub["pack_survivors"]
+            + probe_packs,
             launches_by_path={"lhub": lhub["pack_survivors"],
-                              "ihub": ihub["pack_survivors"]}, **k2),
+                              "ihub": ihub["pack_survivors"],
+                              "radix_probe": probe_packs}, **k2),
         "pallas_tail": p1,
         "affine_smoke": p5,
+        "make_pallas_sort": dict(
+            also_replaces="experiments/pallas_bitonic.py:95", **p2),
+        "make_sort": p3,
+        "dynstore_run": p4,
     }
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

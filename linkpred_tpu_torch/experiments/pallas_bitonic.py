@@ -1,0 +1,208 @@
+"""Probe P2: the bitonic sorting network over n = 2^m int32 keys.
+
+Counterpart of ``experiments/pallas_bitonic.py`` (the Pallas kernels
+``make_pallas_sort`` and ``make_pallas_sort_kv``: every (k, j) stage of the
+network unrolled in one kernel over a VMEM-resident block, with or without
+an int32 payload).  P3 (``pallas_bitonic2.py``) computes the same function
+from a stage table; on the TPU the two differ only in how Mosaic was made to
+compile it.  On the card one CUDA source, ``kernels/csrc/bitonic.cu``, serves
+both, as K1's serves P1:
+
+* :func:`bitonic_stages` is the plain PyTorch network, the partner of each
+  stage a reshape-flip over the flat lane index;
+* :func:`make_pallas_sort` and :func:`make_pallas_sort_kv` return functions
+  on ``(n / 128, 128)`` int32 tensors, like the JAX ones (without their
+  ``interpret`` flag): CPU tensors take :func:`bitonic_stages`, CUDA tensors
+  launch the kernel through :func:`sort_network` or raise;
+* :func:`run` is the counterpart of the probe's ``main()``.
+
+The function.  Stage (k, j) compare-exchanges lane i with lane i ^ j,
+ascending iff (i & k) == 0.  The payload moves only where the key order is
+strict: on equal keys each lane keeps its own payload (the probe's
+``keep_own``), so the payload is part of the function, lane for lane.  Keys
+compare signed.  Unlike the JAX probe, importing this module runs nothing.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.timing import measure_duration
+
+__all__ = ["LANES", "LAUNCHES", "bitonic_stages", "compare_exchange",
+           "make_pallas_sort", "make_pallas_sort_kv", "sort_network",
+           "check_n", "check_operand", "run"]
+
+LANES = 128
+
+# Launches of the CUDA kernel by this probe's wrappers (one per sort).
+LAUNCHES = 0
+
+
+def _stages(n: int):
+    """The network's stages (k, j) in order."""
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            yield k, j
+            j //= 2
+        k *= 2
+
+
+def compare_exchange(v, p, lane, k: int, j: int):
+    """One stage (k, j) over flat int32 lanes ``v`` and payload ``p`` (or
+    None); ``lane`` is the lane index.  Returns the new (v, p)."""
+    n = v.shape[0]
+    vp = v.reshape(n // (2 * j), 2, j).flip(1).reshape(n)
+    take_min = ((lane & k) == 0) == ((lane & j) == 0)
+    if p is not None:
+        pp = p.reshape(n // (2 * j), 2, j).flip(1).reshape(n)
+        keep_own = (take_min & (v <= vp)) | (~take_min & (v >= vp))
+        p = torch.where(keep_own, p, pp)
+    v = torch.where(take_min, torch.minimum(v, vp), torch.maximum(v, vp))
+    return v, p
+
+
+def bitonic_stages(v, n: int, payload=None):
+    """The whole network over ``v`` (any shape of n lanes, row-major) and
+    ``payload`` (same shape, or None).  Returns the sorted keys, or (keys,
+    payload), in ``v``'s shape."""
+    shape = v.shape
+    lane = torch.arange(n, dtype=torch.int32, device=v.device)
+    v = v.reshape(n)
+    p = None if payload is None else payload.reshape(n)
+    for k, j in _stages(n):
+        v, p = compare_exchange(v, p, lane, k, j)
+    v = v.reshape(shape)
+    return v if payload is None else (v, p.reshape(shape))
+
+
+def check_n(n: int, what: str) -> None:
+    if n < LANES or n & (n - 1):
+        raise ValueError(f"{what}: n must be a power of two >= {LANES}, "
+                         f"got {n}")
+
+
+def check_operand(x, n: int, what: str) -> None:
+    """Raise unless ``x`` is an int32 ``(n / 128, 128)`` tensor on the CPU
+    or a CUDA device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.int32 or tuple(x.shape) != (n // LANES, LANES):
+        raise ValueError(f"{what}: expected int32[{n // LANES}, {LANES}], got "
+                         f"{x.dtype}{list(x.shape)}")
+
+
+def sort_network(key, payload, ks, js, what: str) -> None:
+    """Run the stages (ks[s], js[s]) in order on the card, in place on the
+    contiguous CUDA tensors ``key`` and ``payload`` (or None)."""
+    from ..kernels import _build
+
+    lib = _build.load()
+    ks = np.ascontiguousarray(ks, dtype=np.int32)
+    js = np.ascontiguousarray(js, dtype=np.int32)
+    err = lib.lp_bitonic_sort(
+        key.device.index, key.data_ptr(),
+        None if payload is None else payload.data_ptr(), key.numel(),
+        ks.ctypes.data, js.ctypes.data, ks.size,
+        torch.cuda.current_stream(key.device).cuda_stream)
+    _build.check(lib, err, what)
+
+
+def _copy(x):
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def make_pallas_sort(n: int):
+    """``f(x)``: ``x`` int32 ``(n / 128, 128)`` sorted ascending, row-major,
+    in a new tensor."""
+    check_n(n, "make_pallas_sort")
+    ks, js = (np.asarray(a, np.int32) for a in zip(*_stages(n)))
+
+    def f(x):
+        check_operand(x, n, "make_pallas_sort")
+        if x.device.type == "cpu":
+            return bitonic_stages(x, n)
+        out = _copy(x)
+        sort_network(out, None, ks, js, "make_pallas_sort")
+        global LAUNCHES
+        LAUNCHES += 1
+        return out
+
+    return f
+
+
+def make_pallas_sort_kv(n: int):
+    """``f(x, p)``: ``x`` sorted as by :func:`make_pallas_sort`, with the
+    int32 payload ``p`` (same shape) moved along; new tensors."""
+    check_n(n, "make_pallas_sort_kv")
+    ks, js = (np.asarray(a, np.int32) for a in zip(*_stages(n)))
+
+    def f(x, p):
+        check_operand(x, n, "make_pallas_sort_kv")
+        check_operand(p, n, "make_pallas_sort_kv")
+        if p.device != x.device:
+            raise ValueError("make_pallas_sort_kv: x and p on different "
+                             "devices")
+        if x.device.type == "cpu":
+            return bitonic_stages(x, n, payload=p)
+        out, pout = _copy(x), _copy(p)
+        sort_network(out, pout, ks, js, "make_pallas_sort_kv")
+        global LAUNCHES
+        LAUNCHES += 1
+        return out, pout
+
+    return f
+
+
+def run(log2n: int = 12, payload: bool = False, device="cuda") -> dict:
+    """The probe's ``main()``: sort 2^log2n random 31-bit keys, check
+    against ``np.sort`` (with ``payload``, also the key-value sort: keys
+    sorted and ``x[p] == k``), and on a CUDA device time the sort against
+    ``torch.sort`` (plus a payload gather by its indices for the key-value
+    sort).  Raises if a check fails.  Returns the times in ms (none on the
+    CPU, where nothing is timed).  Each time is the mean of 8 calls after
+    a warm-up."""
+    n = 1 << log2n
+    device = torch.device(device)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 1 << 31, n, dtype=np.int32)
+    want = np.sort(x)
+    xt = torch.as_tensor(x, device=device).reshape(n // LANES, LANES)
+    f = make_pallas_sort(n)
+    ok = np.array_equal(f(xt).reshape(-1).cpu().numpy(), want)
+    print(f"P2 bitonic 2^{log2n} on {device}: sorted correctly: {ok}")
+    if not ok:
+        raise RuntimeError("P2: keys not sorted")
+    timed = device.type == "cuda"
+    out = {"n": n}
+    if timed:
+        flat = xt.reshape(-1)
+        out["ms"] = measure_duration(lambda: f(xt), device, 8)[0]
+        out["library_ms"] = measure_duration(lambda: torch.sort(flat),
+                                             device, 8)[0]
+        print(f"  bitonic {out['ms']:.4f} ms, torch.sort "
+              f"{out['library_ms']:.4f} ms per 2^{log2n} sort")
+    if payload:
+        pay = torch.arange(n, dtype=torch.int32, device=device)
+        pt = pay.reshape(n // LANES, LANES)
+        fkv = make_pallas_sort_kv(n)
+        ks, ps = (a.reshape(-1).cpu().numpy() for a in fkv(xt, pt))
+        kv_ok = np.array_equal(ks, want) and np.array_equal(x[ps], ks)
+        print(f"  kv sorted correctly: {kv_ok}")
+        if not kv_ok:
+            raise RuntimeError("P2: key-value sort wrong")
+        if timed:
+            flat = xt.reshape(-1)
+
+            def library():
+                v, idx = torch.sort(flat)
+                return v, pay[idx]
+
+            out["kv_ms"] = measure_duration(lambda: fkv(xt, pt), device,
+                                            8)[0]
+            out["kv_library_ms"] = measure_duration(library, device, 8)[0]
+            print(f"  bitonic kv {out['kv_ms']:.4f} ms, torch.sort + gather "
+                  f"{out['kv_library_ms']:.4f} ms per 2^{log2n} sort")
+    return out

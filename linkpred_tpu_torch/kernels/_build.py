@@ -1,11 +1,10 @@
 """Builds and loads the port's CUDA kernels.
 
-``nvcc`` compiles the sources in ``SOURCES`` (plain C interfaces, no
-PyTorch headers) for ``sm_90a``, one process per source, all started
-together, and links them into one shared library under
+One ``nvcc`` call compiles the sources in ``SOURCES`` (plain C interfaces,
+no PyTorch headers) for ``sm_90a`` into one shared library under
 ``linkpred_tpu_torch/build/`` at first use; it rebuilds when a source is
-newer than the library.  The library is loaded
-with ctypes; tensors go in as ``data_ptr()`` and the stream as
+newer than the library.  The library is loaded with ctypes; tensors go in
+as ``data_ptr()`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``.  No ``--use_fast_math``: the
 float divides and square roots stay IEEE so unweighted scores match the
 plain twins bit for bit.  A missing ``nvcc`` or a failed build raises.
@@ -21,7 +20,8 @@ __all__ = ["load", "check", "SOURCES", "BUILD_DIR", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
-           for f in ("fused_tail.cu", "compact.cu", "smoke.cu")]
+           for f in ("fused_tail.cu", "compact.cu", "smoke.cu", "bitonic.cu",
+                     "dynstore.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 _SO = os.path.join(BUILD_DIR, "liblinkpred_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,36 +44,16 @@ def _nvcc() -> str:
         "linkpred_tpu_torch/kernels/csrc with the CUDA toolkit's nvcc")
 
 
-def _run_all(cmds) -> None:
-    """Run the commands in parallel; raise with the first failure's
-    output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    outs = [p.communicate() for p in procs]
-    for c, p, (_, err) in zip(cmds, procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({p.returncode}) building {_SO}: "
-                f"{' '.join(c)}\n{err}")
-
-
 def _build() -> None:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
-            for s in SOURCES]
-    try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
-                  for s, o in zip(SOURCES, objs)])
-        tmp = f"{_SO}.{tag}"
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
-        os.replace(tmp, _SO)
-    finally:
-        for o in objs:
-            if os.path.exists(o):
-                os.remove(o)
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *SOURCES]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}) building {_SO}: "
+                           f"{' '.join(cmd)}\n{r.stderr}")
+    os.replace(tmp, _SO)
 
 
 def load() -> ctypes.CDLL:
@@ -107,6 +87,15 @@ def load() -> ctypes.CDLL:
     lib.lp_affine_smoke.restype = i32
     lib.lp_affine_smoke.argtypes = [i32, p, p, i64, p]  # device, x, out, n,
     #                                                      stream
+    lib.lp_bitonic_sort.restype = i32
+    lib.lp_bitonic_sort.argtypes = [
+        i32,                              # CUDA device index
+        p, p, i64,                        # key, payload (or None), n
+        p, p, i64,                        # host stage tables ks, js; count
+        p]                                # stream
+    lib.lp_dynstore.restype = i32
+    lib.lp_dynstore.argtypes = [i32, p, p, p, i32, p]  # device, off, x, out,
+    #                                                    iters, stream
     lib.lp_cuda_error_string.restype = ctypes.c_char_p
     lib.lp_cuda_error_string.argtypes = [i32]
     _lib = lib

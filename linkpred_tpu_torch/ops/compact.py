@@ -8,8 +8,9 @@ kk smallest keys of a large buffer; instead of sorting every lane:
    kk-quantile with a margin gives a threshold T with count(key <= T) >= kk
    with high probability.
 2. ``pack_survivors``: exactly the lanes with key <= T, in lane order with
-   their lane indices, go to the front of a buffer of
-   ``total // PACK_RATIO`` lanes; the global survivor count comes back.
+   their lane indices, go to the front of a buffer of ``total // ratio``
+   lanes (``PACK_RATIO`` unless given); the global survivor count comes
+   back.
 3. The caller (``scoring._argselect_packed``) sorts only the survivors when
    ``kk <= count <= capacity``, and otherwise sorts everything: exact either
    way.
@@ -39,10 +40,10 @@ PACK_RATIO = 4
 LAUNCHES = 0
 
 
-def pack_survivors_reference(key, threshold):
+def pack_survivors_reference(key, threshold, ratio: int = None):
     """Plain PyTorch pack; same arguments and results as
     :func:`pack_survivors`."""
-    capacity = key.shape[0] // PACK_RATIO
+    capacity = key.shape[0] // (PACK_RATIO if ratio is None else ratio)
     keep = key <= threshold
     idx = torch.nonzero(keep).flatten()
     count = keep.sum(dtype=torch.int32)
@@ -55,7 +56,7 @@ def pack_survivors_reference(key, threshold):
     return pk, pidx, count
 
 
-def pack_survivors(key, threshold):
+def pack_survivors(key, threshold, ratio: int = None):
     """Pack the lanes with ``key <= threshold`` to the front, in lane order.
 
     ``key``: int32[total] selection keys (``ops/topk.py`` form);
@@ -63,9 +64,12 @@ def pack_survivors(key, threshold):
     ``(pk int32[capacity], pidx int32[capacity], count)``: the survivors'
     keys and lane indices, dead lanes holding ``DEAD_KEY`` and 0, and the
     0-dim int32 global survivor count (survivors past ``capacity`` =
-    ``total // PACK_RATIO`` are counted but dropped)."""
+    ``total // ratio`` are counted but dropped).  ``ratio`` defaults to
+    ``PACK_RATIO``; at 1 every survivor fits (the radix probe's 1-bit
+    split)."""
+    ratio = PACK_RATIO if ratio is None else ratio
     if key.device.type == "cpu":
-        return pack_survivors_reference(key, threshold)
+        return pack_survivors_reference(key, threshold, ratio)
     if key.device.type != "cuda":
         raise ValueError(f"pack_survivors: unsupported device {key.device}")
     if key.dtype != torch.int32 or key.dim() != 1 \
@@ -80,7 +84,7 @@ def pack_survivors(key, threshold):
     lib = _build.load()
     dev = key.device
     total = key.shape[0]
-    capacity = total // PACK_RATIO
+    capacity = total // ratio
     threshold = threshold.contiguous()
     pk = torch.empty(capacity, dtype=torch.int32, device=dev)
     pidx = torch.empty(capacity, dtype=torch.int32, device=dev)

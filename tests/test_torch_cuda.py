@@ -15,7 +15,9 @@ import pytest
 import torch
 
 import linkpred_tpu_torch as lt
-from linkpred_tpu_torch.experiments import pallas_smoke, pallas_tail
+from linkpred_tpu_torch.experiments import (pallas_bitonic, pallas_bitonic2,
+                                            pallas_smoke, pallas_tail,
+                                            radix_probe)
 from linkpred_tpu_torch.kernels import _build
 from linkpred_tpu_torch.ops import compact
 from linkpred_tpu_torch.ops import fused_tail as ft
@@ -267,3 +269,74 @@ def test_p5_kernel(cuda):
     got = pallas_smoke.affine_smoke(x)
     assert pallas_smoke.LAUNCHES == before + 1
     assert torch.equal(got, pallas_smoke.affine_smoke_reference(x))
+
+
+@pytest.mark.parametrize("log2n,dist", [
+    (7, "full"),        # one CTA, below one tile
+    (12, "full"),       # exactly one tile
+    (13, "full"),       # the first global stage
+    (20, "full"),
+    (13, "tied"),       # keys from 16 values: ties everywhere
+    (20, "tied"),
+])
+def test_bitonic_kernel_vs_plain(rng, cuda, log2n, dist):
+    """P2 keys-only, P2 kv and P3 kv: keys and payload bit-equal to the
+    plain network (on ties each lane keeps its payload), keys equal to
+    torch.sort, and the inputs left as they were."""
+    n = 1 << log2n
+    shape = (n // 128, 128)
+    if dist == "tied":
+        x = rng.integers(-8, 8, n)
+    else:
+        x = rng.integers(-(1 << 31), 1 << 31, n)
+    x = torch.as_tensor(x.astype(np.int32), device=cuda).reshape(shape)
+    pay = torch.as_tensor(rng.permutation(n).astype(np.int32),
+                          device=cuda).reshape(shape)
+    x0, pay0 = x.clone(), pay.clone()
+    want_k, want_p = pallas_bitonic.bitonic_stages(x, n, payload=pay)
+    before = (pallas_bitonic.LAUNCHES, pallas_bitonic2.LAUNCHES)
+    keys = pallas_bitonic.make_pallas_sort(n)(x)
+    kv = pallas_bitonic.make_pallas_sort_kv(n)(x, pay)
+    table = pallas_bitonic2.make_sort(n)(x, pay)
+    bare = pallas_bitonic2.make_sort(n, with_payload=False)(x, pay)
+    assert (pallas_bitonic.LAUNCHES, pallas_bitonic2.LAUNCHES) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(x, x0) and torch.equal(pay, pay0)
+    assert torch.equal(keys, want_k)
+    assert torch.equal(keys.reshape(-1), torch.sort(x.reshape(-1)).values)
+    for k, p in (kv, table):
+        assert torch.equal(k, want_k) and torch.equal(p, want_p)
+    assert torch.equal(bare[0], want_k) and torch.equal(bare[1], pay)
+
+
+def test_bitonic_kernel_refuses_bad_operands(cuda):
+    f = pallas_bitonic.make_pallas_sort(1 << 10)
+    with pytest.raises(ValueError, match="expected int32"):
+        f(torch.zeros((4, 128), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="expected int32"):
+        f(torch.zeros((8, 128), dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.parametrize("iters", [1, 5])
+def test_dynstore_kernel_vs_plain(cuda, iters):
+    offs, x = (torch.as_tensor(a, device=cuda) for a in
+               radix_probe.dynstore_inputs(np.random.default_rng(5)))
+    before = radix_probe.LAUNCHES
+    got = radix_probe.dynstore_run(iters, offs, x)
+    assert radix_probe.LAUNCHES == before + 1
+    want = radix_probe.dynstore_reference(iters, offs, x)
+    assert torch.equal(got, want)
+    assert (got == radix_probe.INT32_MIN).all(dim=1).any(), "test premise"
+
+
+def test_pack_kernel_ratio_1_everything_survives(rng, cuda):
+    total = (1 << 20) + 77
+    key = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, total)
+                          .astype(np.int32), device=cuda)
+    thr = torch.tensor((1 << 31) - 1, dtype=torch.int32, device=cuda)
+    out = compact.pack_survivors(key, thr, ratio=1)
+    ref = compact.pack_survivors_reference(key, thr, ratio=1)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert int(out[2]) == total and torch.equal(out[0], key)
+    assert torch.equal(out[1].long(), torch.arange(total, device=cuda))

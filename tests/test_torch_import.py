@@ -34,6 +34,15 @@ res_e = lt.predict_links(g, "jaccard", min_degree1=0, plan=edge,
 assert np.array_equal(res_e.score, res.score), (res_e.score, res.score)
 from linkpred_tpu_torch.experiments.pallas_smoke import affine_smoke
 assert affine_smoke(torch.arange(3, dtype=torch.int32)).tolist() == [1, 3, 5]
+from linkpred_tpu_torch.experiments import (pallas_bitonic, pallas_bitonic2,
+                                            radix_probe)
+x = torch.as_tensor(rng.integers(-9, 9, 256).astype(np.int32)).reshape(2, 128)
+want = torch.sort(x.reshape(-1)).values.reshape(2, 128)
+assert torch.equal(pallas_bitonic.make_pallas_sort(256)(x), want)
+assert torch.equal(pallas_bitonic2.make_sort(256)(x, x)[0], want)
+offs, x = radix_probe.dynstore_inputs(rng)
+out = radix_probe.dynstore_run(1, torch.as_tensor(offs), torch.as_tensor(x))
+assert out.shape == (512, 128)
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "linkpred_tpu"))]
 assert not bad, bad
