@@ -12,9 +12,11 @@ the bench protocol:
   selection by segment) plus the packed hub sub-plan.
 
 Phase 7 drives the JAX package's sort-feasibility probes as ported: P2 and
-P3 (the bitonic network, ``bitonic.cu``) at 2^18-2^21 lanes against their
-plain version and ``torch.sort``, and the radix probe (``torch.sort``, K2
-at ``ratio=1`` as a 1-bit split, P4's dynamic stores in ``dynstore.cu``).
+P3 (the bitonic network, ``bitonic.cu``) bit for bit against their plain
+version at every size its launch planner treats differently (2^7, one
+tile, two tiles, 2^18-2^21, 2^23), timed at 2^18-2^23 against
+``torch.sort``, and the radix probe (``torch.sort``, K2 at ``ratio=1`` as
+a 1-bit split, P4's dynamic stores in ``dynstore.cu``).
 
     python3 chip_smoke.py [scale]
 
@@ -55,6 +57,10 @@ KERNELS = [
     ("dynstore_run", "linkpred_tpu_torch/kernels/csrc/dynstore.cu",
      "experiments/radix_probe.py:118"),
 ]
+# The slice of the port that redesigned K2 and the bitonic kernel
+# (`redesigned_in` in their rows of the record; the earlier design's times
+# are in PERF.md section 6).
+REDESIGNED_IN = 4
 # The card's memory rate and float32 rate outside the tensor cores
 # (H100 SXM data sheet): the roofline of every kernel here.
 HBM_BYTES_PER_S = 3.35e12
@@ -351,15 +357,26 @@ def phase_k2(device, rng):
                            device=device) | (lane & 0x7FFFFE)
     clustered[3_000_000: 3_000_000 + kk] = lane[:kk]
     clustered[-1000:] = 5
-    for name, k in [("random", key), ("clustered", clustered)]:
+    # the view one lane in is not 16-byte aligned and 2^24 - 1 lanes long
+    cases = [("random", key), ("clustered", clustered),
+             ("random, view at lane 1", key[1:])]
+    for name, k in cases:
         thr, _ = compact.sample_threshold(k, kk)
         out = compact.pack_survivors(k, thr)
         ref = compact.pack_survivors_reference(k, thr)
         torch.cuda.synchronize()
         for a, b, what in zip(out, ref, ("keys", "indices", "count")):
             check(torch.equal(a, b), f"K2 {name}: {what} differ")
-        print(f"  K2 {name}: {total} lanes, {int(out[2])} survivors: "
+        print(f"  K2 {name}: {k.numel()} lanes, {int(out[2])} survivors: "
               "kernel == twin")
+    # two calls back to back on the stream: the look-back state is fresh
+    thr = [compact.sample_threshold(k, kk)[0] for k in (key, clustered)]
+    outs = [compact.pack_survivors(k, t) for k, t in zip((key, clustered),
+                                                          thr)]
+    for k, t, out in zip((key, clustered), thr, outs):
+        for a, b in zip(out, compact.pack_survivors_reference(k, t)):
+            check(torch.equal(a, b), "K2 back to back: differs")
+    print("  K2 twice back to back on one stream: both == twin")
     thr, _ = compact.sample_threshold(key, kk)
     ms = cuda_ms(lambda: compact.pack_survivors(key, thr))
     plain = cuda_ms(lambda: compact.pack_survivors_reference(key, thr))
@@ -370,14 +387,24 @@ def phase_k2(device, rng):
         return key[idx], idx
 
     lib_ms = cuda_ms(library)
+    # the card's reach on K2's bytes: a device copy of the 2^24 keys
+    copy = torch.empty_like(key)
+    copy_ms = cuda_ms(lambda: copy.copy_(key))
+    del copy
+    parts = device_ms_of(lambda: compact.pack_survivors(key, thr))
+    print("  K2 device time by launch (profiler, one call): " + ", ".join(
+        f"{name[:40]} {ms * 1e3:.1f} us" for name, ms in parts.items()))
     count = int(compact.pack_survivors(key, thr)[2])
-    # read every key once; write each survivor's key and lane, and the count
-    b = bound(4 * total + 8 * count + 4, total)
+    capacity = total // compact.PACK_RATIO
+    # read every key once; write every output lane (key and lane index, the
+    # dead ones too) once, and the count
+    b = bound(4 * total + 8 * capacity + 4, total)
     print(f"  K2 time at 2^24 lanes ({count} survivors): kernel {ms:.4f} ms, "
           f"twin {plain:.4f} ms, nonzero + gather {lib_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); a copy of the keys "
+          f"(67.1 MB read and written) {copy_ms:.4f} ms")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **b,
-                library_ms=lib_ms)
+                library_ms=lib_ms, redesigned_in=REDESIGNED_IN)
 
 
 # --------------------------------------------------- phase 4: end to end
@@ -672,7 +699,30 @@ def recall_of(res, removed) -> float:
     return len(removed & got) / max(len(removed), 1)
 
 
+def device_ms_of(fn, tries: int = 3):
+    """The device work of one call of ``fn`` (after a warm-up call), from
+    the profiler: ``device_ms_by_kernel``.  A profiler session that records
+    no device event (seen on the card) is retried; after ``tries`` such
+    sessions the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = device_ms_by_kernel(prof)
+        if got:
+            return got
+    check(False, f"the profiler recorded no device event in {tries} sessions")
+
+
 def device_ms_by_kernel(prof):
+    """{kernel name: device ms} over the session, in the order of each
+    name's first launch."""
     from torch.autograd import DeviceType
 
     by_kernel = {}
@@ -932,10 +982,16 @@ def phase_ihub(device, scale: int = 18):
 
 # ------------------------------------------------ phase 7: the sort probes
 
-# log2 of the bitonic sizes timed: where the TPU measured P2 and P3, and the
-# engine's tile sizes (the middle one is the record's headline); the radix
-# probe's own size
+# log2 of the sizes the probes' paths run P2 and P3 at: where the TPU
+# measured them, and the engine's tile sizes (the middle one is the
+# record's headline); the bitonic kernel is timed there and at the hub
+# sub-plan's cap 2^23 (its key-value arrays past the 50 MB L2), and held
+# against its plain version at every size its launch planner treats
+# differently (below a tile, one tile, two tiles, and the timed ones); the
+# radix probe's own size
 SORT_SIZES = (18, 20, 21)
+TIMED_SIZES = SORT_SIZES + (23,)
+CHECK_SIZES = (7, 13, 14) + TIMED_SIZES
 RADIX_LOG2 = 21
 
 
@@ -951,23 +1007,36 @@ def bitonic_vs_plain(device, rng, log2n: int):
     without payload) on duplicate-heavy keys, against its plain version bit
     for bit (keys and payload), against ``torch.sort`` (keys), with the
     payload a permutation and ``x[p] == k``; the inputs stay unwritten.
-    Returns the card tensors (x, payload)."""
+    Returns the card tensors (x, payload) and the kernel's grid launches
+    per sort, as ``bitonic.cu`` counted them in each of the four sorts
+    (which must agree with each other and with the rows of the plan)."""
     import torch
     from linkpred_tpu_torch.experiments import pallas_bitonic as p2
     from linkpred_tpu_torch.experiments import pallas_bitonic2 as p3
 
     n = 1 << log2n
+    where = f"bitonic 2^{log2n}"
     shape = (n // p2.LANES, p2.LANES)
     x = torch.as_tensor(dup_keys(rng, n), device=device).reshape(shape)
     pay = torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
     x0, pay0 = x.clone(), pay.clone()
     plain_k, plain_p = p2.bitonic_stages(x, n, payload=pay)
-    got = {"P2 keys": (p2.make_pallas_sort(n)(x), None),
-           "P2 kv": p2.make_pallas_sort_kv(n)(x, pay),
-           "P3 kv": p3.make_sort(n)(x, pay)}
-    k_np, p_np = p3.make_sort(n, with_payload=False)(x, pay)
+    launched = []
+
+    def counted(f, *args):
+        p2.GRID_LAUNCHES = 0
+        out = f(*args)
+        launched.append(p2.GRID_LAUNCHES)
+        return out
+
+    got = {"P2 keys": (counted(p2.make_pallas_sort(n), x), None),
+           "P2 kv": counted(p2.make_pallas_sort_kv(n), x, pay),
+           "P3 kv": counted(p3.make_sort(n), x, pay)}
+    k_np, p_np = counted(p3.make_sort(n, with_payload=False), x, pay)
     torch.cuda.synchronize()
-    where = f"bitonic 2^{log2n}"
+    rows = len(p2.plan_launches(*p3.stage_table(n), n))
+    check(launched == [rows] * 4, f"{where}: grid launches per sort "
+          f"{launched}, the plan has {rows} rows")
     check(torch.equal(x, x0) and torch.equal(pay, pay0),
           f"{where}: the input was written")
     check(torch.equal(k_np, plain_k) and torch.equal(p_np, pay),
@@ -990,13 +1059,50 @@ def bitonic_vs_plain(device, rng, log2n: int):
     ties = n - int(torch.unique(flat_x).numel())
     print(f"  {where}: P2 keys, P2 kv, P3 kv (and P3 without payload) == "
           f"plain bit for bit, keys == torch.sort, x[p] == k; {ties} tied "
-          "lanes")
-    return x, pay
+          f"lanes; {rows} grid launches per sort (counted in each)")
+    return x, pay, rows
 
 
-def time_bitonic(device, x, pay):
+def launch_ms(x, pay):
+    """Device ms of each grid launch of one bitonic sort of ``x`` (with the
+    payload ``pay``, or None): the plan's rows run one at a time through
+    ``sort_network`` on copies, a CUDA event after each, all queued behind
+    a sleep kernel so that the host's issue gaps fall inside the sleep.
+    The result must equal the whole sort's."""
+    import torch
+    from linkpred_tpu_torch.experiments import pallas_bitonic as p2
+    from linkpred_tpu_torch.experiments import pallas_bitonic2 as p3
+
+    n = x.numel()
+    ks, js = p3.stage_table(n)
+    plan = p2.plan_launches(ks, js, n).tolist()
+    k = x.clone()
+    p = None if pay is None else pay.clone()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(plan) + 1)]
+    torch.cuda._sleep(50_000_000)
+    events[0].record()
+    for row, (kind, first, count) in enumerate(plan):
+        stages = slice(first, first + count)
+        p2.sort_network(k, p, ks[stages], js[stages], [(kind, 0, count)],
+                        "bitonic launch by launch")
+        events[row + 1].record()
+    torch.cuda.synchronize()
+    if p is None:
+        check(torch.equal(k, p2.make_pallas_sort(n)(x)),
+              "bitonic launch by launch: keys != the whole sort's")
+    else:
+        for a, b in zip((k, p), p2.make_pallas_sort_kv(n)(x, pay)):
+            check(torch.equal(a, b),
+                  "bitonic launch by launch: != the whole sort's")
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def time_bitonic(device, x, pay, rows: int):
     """Kernel, ``torch.sort`` (+ gather) and plain version on the same card
-    tensors: keys-only through P2, key-value through P2 and P3."""
+    tensors: keys-only through P2, key-value through P2 and P3.  Then the
+    kernel and ``torch.sort`` on the random 31-bit keys that P2's and P3's
+    ``run`` sort."""
     import torch
     from linkpred_tpu_torch.experiments import pallas_bitonic as p2
     from linkpred_tpu_torch.experiments import pallas_bitonic2 as p3
@@ -1029,7 +1135,25 @@ def time_bitonic(device, x, pay):
         print(f"  {name} 2^{m}: kernel {t['ms']:.4f} ms, torch.sort"
               f"{'' if name == 'P2 keys' else ' + gather'} "
               f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+              f"{rows} grid launches per sort")
+    r31 = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 1 << 31, n, dtype=np.int32), device=device)
+    keys["random31"] = dict(ms=cuda_ms(lambda: f(r31.reshape(x.shape))),
+                            library_ms=cuda_ms(lambda: torch.sort(r31)))
+    print(f"  P2 keys 2^{m} on run()'s random 31-bit keys: kernel "
+          f"{keys['random31']['ms']:.4f} ms, torch.sort "
+          f"{keys['random31']['library_ms']:.4f} ms (1,024-value keys: "
+          f"{keys['ms']:.4f}, {keys['library_ms']:.4f} ms)")
+    if m == 20:
+        for name, p in (("keys", None), ("kv", pay)):
+            per = launch_ms(x, p)
+            check(len(per) == rows and all(ms > 0 for ms in per),
+                  f"bitonic {name} 2^{m}: launch times {per}")
+            print(f"  P2 {name} 2^{m} device time per grid launch (CUDA "
+                  "events, launches queued back to back): " + ", ".join(
+                      f"{ms * 1e3:.1f}" for ms in per)
+                  + f" us; sum {sum(per):.4f} ms")
     return keys, kv, table
 
 
@@ -1061,12 +1185,14 @@ def phase_sort_probes(device, rng):
     check(all(v > 0 for v in launches.values()),
           f"sort probes: a kernel never launched: {launches}")
 
-    timed = {}
-    for m in (12,) + SORT_SIZES:
-        x, pay = bitonic_vs_plain(device, rng, m)
-        if m in SORT_SIZES:
-            timed[m] = time_bitonic(device, x, pay)
+    timed, per_sort = {}, {}
+    for m in CHECK_SIZES:
+        x, pay, per_sort[f"2^{m}"] = bitonic_vs_plain(device, rng, m)
+        if m in TIMED_SIZES:
+            timed[m] = time_bitonic(device, x, pay, per_sort[f"2^{m}"])
         del x, pay
+    check(per_sort["2^20"] <= 16,
+          f"bitonic: {per_sort['2^20']} grid launches per 2^20 sort")
 
     # P4 at the probe's shape
     offs, xs = (torch.as_tensor(a, device=device)
@@ -1108,13 +1234,17 @@ def phase_sort_probes(device, rng):
 
     head = SORT_SIZES[1]
     by_size = lambda i: {f"2^{m}": timed[m][i]  # noqa: E731
-                         for m in SORT_SIZES if m != head}
+                         for m in TIMED_SIZES if m != head}
     keys, kv, table = timed[head]
     p2_row = row(keys, dict(launches=launches["make_pallas_sort"],
                             shape=f"2^{head} keys", kv=kv,
-                            kv_by_size=by_size(1), keys_by_size=by_size(0)))
+                            kv_by_size=by_size(1), keys_by_size=by_size(0),
+                            launches_per_sort=per_sort,
+                            redesigned_in=REDESIGNED_IN))
     p3_row = row(table, dict(launches=launches["make_sort"],
-                             shape=f"2^{head} key-value", by_size=by_size(2)))
+                             shape=f"2^{head} key-value", by_size=by_size(2),
+                             launches_per_sort=per_sort,
+                             redesigned_in=REDESIGNED_IN))
     p4_row = row(p4, dict(launches=launches["dynstore_run"],
                           shape="iters 32", library_ms=None,
                           per_store_us=radix["per_store_us"]))
@@ -1166,7 +1296,8 @@ def main() -> int:
     phase("phase 6: the IHub path, RMAT-18 on the edge stream")
     ihub = phase_ihub(device, 18)
     torch.cuda.empty_cache()
-    phase("phase 7: the sort probes P2, P3 (bitonic) and P4 (radix probe)")
+    phase("phase 7: the sort probes P2, P3 (bitonic) and P4 (radix probe); "
+          "bitonic at 2^7-2^23")
     p2, p3, p4, probe_packs = phase_sort_probes(device, rng)
     phase("done")
 

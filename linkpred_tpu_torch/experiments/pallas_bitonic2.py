@@ -4,8 +4,8 @@ Counterpart of ``experiments/pallas_bitonic2.py`` (the Pallas kernel
 ``make_sort``: one ``fori_loop`` body over a (k, j) table in SMEM, so that
 Mosaic's compile time stops growing with the stage count).  It computes the
 function of P2 (``pallas_bitonic.py``), and on the card it runs the same
-CUDA source, ``kernels/csrc/bitonic.cu``, whose host loop walks this
-module's :func:`stage_table` in order:
+CUDA source, ``kernels/csrc/bitonic.cu``, which runs this module's
+:func:`stage_table` as ``pallas_bitonic.plan_launches`` groups it:
 
 * :func:`stage_table` is the probe's table, in numpy;
 * :func:`table_stages` is the plain PyTorch version: P2's compare-exchange
@@ -25,7 +25,7 @@ import torch
 
 from ..utils.timing import measure_duration
 from .pallas_bitonic import (LANES, check_n, check_operand, compare_exchange,
-                             sort_network)
+                             plan_launches, sort_network)
 
 __all__ = ["LAUNCHES", "stage_table", "table_stages", "make_sort", "run"]
 
@@ -64,6 +64,7 @@ def make_sort(n: int, with_payload: bool = True):
     with its key, or with ``with_payload=False`` comes back unchanged."""
     check_n(n, "make_sort")
     ks, js = stage_table(n)
+    plan = plan_launches(ks, js, n)
 
     def f(x, p):
         check_operand(x, n, "make_sort")
@@ -75,7 +76,8 @@ def make_sort(n: int, with_payload: bool = True):
             return v, (q if with_payload else p.clone())
         out = x.clone(memory_format=torch.contiguous_format)
         pout = p.clone(memory_format=torch.contiguous_format)
-        sort_network(out, pout if with_payload else None, ks, js, "make_sort")
+        sort_network(out, pout if with_payload else None, ks, js, plan,
+                     "make_sort")
         global LAUNCHES
         LAUNCHES += 1
         return out, pout

@@ -92,7 +92,10 @@ def load() -> ctypes.CDLL:
         i32,                              # CUDA device index
         p, p, i64,                        # key, payload (or None), n
         p, p, i64,                        # host stage tables ks, js; count
-        p]                                # stream
+        p, i64, i32,                      # host launch table, rows, log2 tile
+        p, p]                             # stream, host int64 launch count
+    lib.lp_bitonic_limits.restype = None
+    lib.lp_bitonic_limits.argtypes = [p]  # host int32[4]
     lib.lp_dynstore.restype = i32
     lib.lp_dynstore.argtypes = [i32, p, p, p, i32, p]  # device, off, x, out,
     #                                                    iters, stream

@@ -31,13 +31,16 @@ import torch
 from .topk import DEAD_KEY
 
 __all__ = ["pack_survivors", "pack_survivors_reference", "sample_threshold",
-           "PACK_RATIO", "LAUNCHES"]
+           "PACK_RATIO", "LAUNCHES", "MAX_TOTAL"]
 
 # Survivor capacity as a fraction of the buffer (the reference's value).
 PACK_RATIO = 4
 
 # Launches of the CUDA kernel (the wrapper adds one per launch).
 LAUNCHES = 0
+
+# Lanes the pack takes: its lane indices and count are int32.
+MAX_TOTAL = 1 << 31
 
 
 def pack_survivors_reference(key, threshold, ratio: int = None):
@@ -66,8 +69,12 @@ def pack_survivors(key, threshold, ratio: int = None):
     0-dim int32 global survivor count (survivors past ``capacity`` =
     ``total // ratio`` are counted but dropped).  ``ratio`` defaults to
     ``PACK_RATIO``; at 1 every survivor fits (the radix probe's 1-bit
-    split)."""
+    split).  Raises ``ValueError`` for ``total >= 2^31``: lane indices and
+    the count are int32."""
     ratio = PACK_RATIO if ratio is None else ratio
+    if key.shape[0] >= MAX_TOTAL:
+        raise ValueError(f"pack_survivors: {key.shape[0]} lanes, the int32 "
+                         f"lane indices take fewer than {MAX_TOTAL}")
     if key.device.type == "cpu":
         return pack_survivors_reference(key, threshold, ratio)
     if key.device.type != "cuda":
@@ -86,11 +93,14 @@ def pack_survivors(key, threshold, ratio: int = None):
     total = key.shape[0]
     capacity = total // ratio
     threshold = threshold.contiguous()
-    pk = torch.empty(capacity, dtype=torch.int32, device=dev)
-    pidx = torch.empty(capacity, dtype=torch.int32, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.lp_pack_scratch_bytes(total),
-                          dtype=torch.uint8, device=dev)
+    # one allocation (the host's cost per call is mostly allocations):
+    # pk, pidx at 16-byte aligned offsets, the kernel's scratch (8-byte
+    # words), the count
+    span = -(-capacity // 4) * 4
+    words = lib.lp_pack_scratch_bytes(total) // 4
+    buf = torch.empty(2 * span + words + 1, dtype=torch.int32, device=dev)
+    pk, pidx = buf[:capacity], buf[span: span + capacity]
+    scratch, count = buf[2 * span:], buf[2 * span + words]
     err = lib.lp_pack_survivors(
         dev.index, key.data_ptr(), threshold.data_ptr(), total, capacity,
         pk.data_ptr(), pidx.data_ptr(), count.data_ptr(), scratch.data_ptr(),

@@ -168,3 +168,10 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         compact.pack_survivors(key, key[0])
 
+
+def test_wrapper_refuses_2_31_lanes():
+    """Lane indices and the count are int32 (a meta tensor: no memory)."""
+    key = torch.zeros(compact.MAX_TOTAL, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="int32 lane indices"):
+        compact.pack_survivors(key, key[0])
+    assert compact.MAX_TOTAL == 1 << 31

@@ -272,17 +272,24 @@ def test_p5_kernel(cuda):
 
 
 @pytest.mark.parametrize("log2n,dist", [
-    (7, "full"),        # one CTA, below one tile
-    (12, "full"),       # exactly one tile
-    (13, "full"),       # the first global stage
+    (7, "full"),        # one CTA of four threads, below one tile
+    (12, "full"),       # one CTA, below one tile
+    (13, "full"),       # exactly one tile
+    (14, "full"),       # tile * 2: the first global launch
+    (15, "full"),
     (20, "full"),
+    (23, "full"),       # the hub sub-plan's cap, past the L2 with payload;
+    #                     its two largest merges take two global launches
     (13, "tied"),       # keys from 16 values: ties everywhere
+    (14, "tied"),
+    (15, "tied"),
     (20, "tied"),
 ])
 def test_bitonic_kernel_vs_plain(rng, cuda, log2n, dist):
-    """P2 keys-only, P2 kv and P3 kv: keys and payload bit-equal to the
-    plain network (on ties each lane keeps its payload), keys equal to
-    torch.sort, and the inputs left as they were."""
+    """P2 keys-only, P2 kv and P3 kv at the planner's boundary sizes: keys
+    and payload bit-equal to the plain network (on ties each lane keeps its
+    payload), keys equal to torch.sort, and the inputs left as they
+    were."""
     n = 1 << log2n
     shape = (n // 128, 128)
     if dist == "tied":
@@ -309,6 +316,47 @@ def test_bitonic_kernel_vs_plain(rng, cuda, log2n, dist):
     assert torch.equal(bare[0], want_k) and torch.equal(bare[1], pay)
 
 
+@pytest.mark.parametrize("log2n,tile", [(12, 64), (14, 256), (16, 1 << 10),
+                                        (18, 1 << 12)])
+def test_bitonic_kernel_small_tiles(rng, cuda, log2n, tile):
+    """Small tiles put global launches of one to seven stages, and merges
+    split over several, at small n: the kernel in the planner's grouping
+    equals the plain network."""
+    n = 1 << log2n
+    ks, js = pallas_bitonic2.stage_table(n)
+    plan = pallas_bitonic.plan_launches(ks, js, n, tile=tile)
+    sizes = set(plan[plan[:, 0] == pallas_bitonic.GLOBAL_LAUNCH, 2].tolist())
+    assert sizes, "test premise: global launches"
+    x = torch.as_tensor(rng.integers(-8, 8, n).astype(np.int32), device=cuda)
+    pay = torch.as_tensor(rng.permutation(n).astype(np.int32), device=cuda)
+    want = pallas_bitonic.bitonic_stages(x, n, payload=pay)
+    for with_payload in (True, False):
+        k, p = x.clone(), pay.clone()
+        before = pallas_bitonic.GRID_LAUNCHES
+        launched = pallas_bitonic.sort_network(
+            k, p if with_payload else None, ks, js, plan, "small tiles",
+            tile=tile)
+        assert launched == len(plan)
+        assert pallas_bitonic.GRID_LAUNCHES == before + len(plan)
+        assert torch.equal(k, want[0])
+        assert torch.equal(p, want[1] if with_payload else pay)
+
+
+def test_bitonic_kernel_refuses_a_bad_plan(cuda):
+    n = 1 << 15
+    ks, js = pallas_bitonic2.stage_table(n)
+    plan = pallas_bitonic.plan_launches(ks, js, n)
+    x = torch.zeros(n, dtype=torch.int32, device=cuda)
+    bad = plan.copy()
+    bad[0, 2] -= 1                       # the launches skip a stage
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pallas_bitonic.sort_network(x, None, ks, js, bad, "bad plan")
+    bad = plan.copy()
+    bad[1, 0] = pallas_bitonic.TILE_LAUNCH   # a global stage in a tile run
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pallas_bitonic.sort_network(x, None, ks, js, bad, "bad plan")
+
+
 def test_bitonic_kernel_refuses_bad_operands(cuda):
     f = pallas_bitonic.make_pallas_sort(1 << 10)
     with pytest.raises(ValueError, match="expected int32"):
@@ -327,6 +375,63 @@ def test_dynstore_kernel_vs_plain(cuda, iters):
     want = radix_probe.dynstore_reference(iters, offs, x)
     assert torch.equal(got, want)
     assert (got == radix_probe.INT32_MIN).all(dim=1).any(), "test premise"
+
+
+def _pack_vs_twin(key, thr, ratio=None):
+    before = compact.LAUNCHES
+    out = compact.pack_survivors(key, thr, ratio)
+    assert compact.LAUNCHES == before + 1
+    ref = compact.pack_survivors_reference(key, thr, ratio)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return out
+
+
+@pytest.mark.parametrize("total", [1, 3, 4097, (1 << 20) + 77])
+def test_pack_kernel_misaligned_view(rng, cuda, total):
+    """A view one lane into its buffer is not 16-byte aligned, and the
+    total is no multiple of 4: scalar head and tail."""
+    buf = torch.as_tensor(rng.integers(-100, 100, total + 1).astype(np.int32),
+                          device=cuda)
+    key = buf[1:]
+    assert key.data_ptr() % 16 != 0 and key.is_contiguous()
+    for thr in (0, 99, -101):
+        _pack_vs_twin(key, torch.tensor(thr, dtype=torch.int32, device=cuda),
+                      ratio=1)
+        _pack_vs_twin(key, torch.tensor(thr, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("survivors", ["zero", "capacity", "capacity+1"])
+def test_pack_kernel_count_at_the_edges(rng, cuda, survivors):
+    total = (1 << 18) + 13
+    capacity = total // compact.PACK_RATIO
+    count = {"zero": 0, "capacity": capacity,
+             "capacity+1": capacity + 1}[survivors]
+    key = np.full(total, 1000, np.int32)
+    lanes = rng.choice(total, count, replace=False)
+    key[lanes] = rng.integers(-50, 50, count)
+    out = _pack_vs_twin(torch.as_tensor(key, device=cuda),
+                        torch.tensor(50, dtype=torch.int32, device=cuda))
+    assert int(out[2]) == count
+    live = min(count, capacity)
+    assert torch.equal(out[1][:live].cpu(),
+                       torch.as_tensor(np.sort(lanes)[:live], dtype=torch.int32))
+
+
+def test_pack_kernel_back_to_back(rng, cuda):
+    """Two calls on one stream with no sync between: each starts from a
+    fresh look-back state."""
+    total = (1 << 22) + 5
+    keys = [torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, total)
+                            .astype(np.int32), device=cuda) for _ in range(2)]
+    thrs = [torch.tensor(t, dtype=torch.int32, device=cuda)
+            for t in (-(1 << 30), 1 << 29)]
+    outs = [compact.pack_survivors(k, t) for k, t in zip(keys, thrs)]
+    outs.append(compact.pack_survivors(keys[0], thrs[0]))
+    for (k, t), out in zip(list(zip(keys, thrs)) + [(keys[0], thrs[0])],
+                           outs):
+        for a, b in zip(out, compact.pack_survivors_reference(k, t)):
+            assert torch.equal(a, b)
 
 
 def test_pack_kernel_ratio_1_everything_survives(rng, cuda):

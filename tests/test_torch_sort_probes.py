@@ -5,7 +5,10 @@ from their files (Pallas in interpret mode).
 
 Bitonic: keys and payload bit-equal to the JAX network, on full-range keys
 and on duplicate-heavy keys (16 values), where the payload shows the tie
-rule (each lane keeps its own payload on equal keys).  P4: whole (512, 128)
+rule (each lane keeps its own payload on equal keys).  The kernel's launch
+planner: its rows cover the stage table once, in order; replayed launch by
+launch, each CTA's lanes alone, they give the plain network bit for bit;
+tables out of the network's order raise.  P4: whole (512, 128)
 arrays equal, untouched rows included.  K2: the plain version's survivors
 equal the concatenated live lanes of the JAX pack at a shrunk chunk.  The
 kernels themselves run in test_torch_cuda.py.
@@ -116,6 +119,153 @@ def test_p2_and_p3_are_one_function(rng):
         assert torch.equal(u, v)
     assert torch.equal(x.reshape(-1)[a[1].reshape(-1).long()],
                        a[0].reshape(-1))
+
+
+def _run_plan_plain(x, p, ks, js, plan, tile):
+    """The stages as the kernel groups them: each CTA's block of lanes
+    alone, the plain compare-exchange inside it, directions from the global
+    lane index.  A tile launch's block is a tile of consecutive lanes; a
+    global launch's block gathers 2^count runs of tile / 2^count
+    consecutive lanes at stride 2^g, g = log2 of the launch's last j.  A
+    partner outside its block fails the reshape."""
+    n = x.numel()
+    tile = min(tile, n)
+    v, q = x.reshape(n).clone(), p.reshape(n).clone()
+    lane = torch.arange(n, dtype=torch.int32)
+    for kind, first, count in plan.tolist():
+        stages = list(zip(ks[first: first + count].tolist(),
+                          js[first: first + count].tolist()))
+        if kind == pallas_bitonic.TILE_LAUNCH:
+            c = g = tile.bit_length() - 1
+            blocks = lane.reshape(n // tile, tile)
+        else:
+            assert kind == pallas_bitonic.GLOBAL_LAUNCH
+            assert len({k for k, _ in stages}) == 1
+            g = stages[-1][1].bit_length() - 1
+            c = tile.bit_length() - 1 - count
+            assert c >= pallas_bitonic.RUN_LOG2 and stages[-1][1] >= tile
+            # lane bits: [above g + count | count gathered | g - c | c run]
+            blocks = lane.reshape(n >> (g + count), 1 << count, 1 << (g - c),
+                                  1 << c).permute(0, 2, 1, 3) \
+                .reshape(n // tile, tile)
+        rows = blocks.shape[0]
+        bl = blocks.long()
+        gv, gq = v[bl], q[bl]
+        for k, j in stages:
+            jb = j.bit_length() - 1
+            stride = 1 << (jb if jb < c else c + jb - g)
+
+            def partner(a):
+                return a.reshape(rows, tile // (2 * stride), 2, stride) \
+                    .flip(2).reshape(rows, tile)
+
+            vp, qp = partner(gv), partner(gq)
+            take_min = ((blocks & k) == 0) == ((blocks & j) == 0)
+            keep = (take_min & (gv <= vp)) | (~take_min & (gv >= vp))
+            gq = torch.where(keep, gq, qp)
+            gv = torch.where(take_min, torch.minimum(gv, vp),
+                             torch.maximum(gv, vp))
+        v[bl], q[bl] = gv, gq
+    return v.reshape(x.shape), q.reshape(x.shape)
+
+
+@pytest.mark.parametrize("log2n", range(7, 24))
+def test_plan_covers_the_table_in_order(log2n):
+    n = 1 << log2n
+    ks, js = pallas_bitonic2.stage_table(n)
+    plan = pallas_bitonic.plan_launches(ks, js, n)
+    assert plan.dtype == np.int32 and plan.shape[1] == 3
+    starts = np.r_[0, np.cumsum(plan[:, 2])[:-1]]
+    np.testing.assert_array_equal(plan[:, 1], starts)
+    assert plan[:, 2].sum() == ks.size and (plan[:, 2] >= 1).all()
+    tile = min(pallas_bitonic.TILE, n)
+    m, t = log2n, tile.bit_length() - 1
+    span = t - pallas_bitonic.RUN_LOG2
+    for kind, first, count in plan:
+        run = js[first: first + count]
+        if kind == pallas_bitonic.TILE_LAUNCH:
+            assert (run < tile).all()
+        else:
+            assert (run >= tile).all() and count <= span
+            assert (ks[first: first + count] == ks[first]).all()
+    # all stages up to k = tile in the first launch; then per larger k its
+    # global stages in ceil(s / span) launches and one tile launch
+    assert len(plan) == 1 + sum(-(-(b - t) // span) + 1
+                                for b in range(t + 1, m + 1))
+
+
+@pytest.mark.parametrize("dist", ["full", "dup16"])
+@pytest.mark.parametrize("log2n,tile", [(10, 64), (11, 256), (12, 128),
+                                        (13, 256), (14, 512)])
+def test_plan_grouping_is_the_network(rng, log2n, tile, dist):
+    """With small tiles, global launches of one to four stages, split
+    merges among them, occur: the network run launch by launch in the
+    planner's grouping gives bitonic_stages' keys and payload bit for
+    bit."""
+    n = 1 << log2n
+    x, pay = (torch.as_tensor(a) for a in _operands(rng, n, dist))
+    ks, js = pallas_bitonic2.stage_table(n)
+    plan = pallas_bitonic.plan_launches(ks, js, n, tile=tile)
+    assert (plan[:, 0] == pallas_bitonic.GLOBAL_LAUNCH).any()
+    got = _run_plan_plain(x, pay, ks, js, plan, tile)
+    want = pallas_bitonic.bitonic_stages(x, n, payload=pay)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_plan_launches_per_sort():
+    """At most 16 launches at 2^20, one up to one tile, three at two
+    tiles; at 2^23 the merges of the two largest k take two global launches
+    each."""
+    count = {m: len(pallas_bitonic.plan_launches(
+        *pallas_bitonic2.stage_table(1 << m), 1 << m))
+        for m in (7, 13, 14, 20, 23)}
+    assert count == {7: 1, 13: 1, 14: 3, 20: 15, 23: 23}
+
+
+def _swap_two(ks, js):
+    ks, js = ks.copy(), js.copy()
+    ks[[5, 6]], js[[5, 6]] = ks[[6, 5]], js[[6, 5]]
+    return ks, js
+
+
+@pytest.mark.parametrize("case", ["swapped", "missing", "repeated",
+                                  "j_not_below_k", "k_over_n", "not_pow2"])
+def test_plan_refuses_tables_out_of_order(case):
+    n = 1 << 10
+    ks, js = pallas_bitonic2.stage_table(n)
+    if case == "swapped":
+        ks, js = _swap_two(ks, js)
+    elif case == "missing":
+        ks, js = np.delete(ks, 20), np.delete(js, 20)
+    elif case == "repeated":
+        ks, js = np.insert(ks, 20, ks[20]), np.insert(js, 20, js[20])
+    elif case == "j_not_below_k":
+        js = js.copy()
+        js[0] = 2
+    elif case == "k_over_n":
+        ks, js = pallas_bitonic2.stage_table(2 * n)
+    else:
+        ks = ks.copy()
+        ks[-1] = 3
+    with pytest.raises(ValueError, match="plan_launches"):
+        pallas_bitonic.plan_launches(ks, js, n)
+
+
+@pytest.mark.parametrize("n,tile", [(16, 64), (1 << 10, 48), (1 << 10, 32),
+                                    (1 << 10, 1 << 14), (96, 64)])
+def test_plan_refuses_bad_n_or_tile(n, tile):
+    with pytest.raises(ValueError, match="power of two"):
+        pallas_bitonic.plan_launches([], [], n, tile=tile)
+
+
+def test_plan_of_a_table_segment():
+    """A table may start anywhere in the network's order."""
+    n = 1 << 16
+    ks, js = pallas_bitonic2.stage_table(n)
+    plan = pallas_bitonic.plan_launches(ks[100:], js[100:], n, tile=1 << 12)
+    assert plan[:, 2].sum() == ks.size - 100 and plan[0, 1] == 0
+    assert pallas_bitonic.plan_launches(ks[:0], js[:0], n).shape == (0, 3)
 
 
 def test_bitonic_payload_keeps_own_on_ties():
