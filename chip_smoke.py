@@ -19,8 +19,12 @@ tile, two tiles, 2^18-2^21, 2^23), timed at 2^18-2^23 against
 a 1-bit split, P4's dynamic stores in ``dynstore.cu``).
 
     python3 chip_smoke.py [scale]
+    python3 chip_smoke.py --k1-ab OTHER_TREE
 
-``scale`` (default 19) sets the R-MAT scale of the LHub path.  Run from the
+``scale`` (default 19) sets the R-MAT scale of the LHub path.  With
+``--k1-ab`` it only times K1 at the main paths' shapes, in this tree and in
+another checkout of the repository (such as the parent commit unpacked by
+``git archive``), in turns.  Run from the
 root of the repository.  Every phase prints its lines and any
 failure raises, so the run exits non-zero.  With no CUDA device, or without
 the package beside the script, it exits non-zero and prints no result.
@@ -57,10 +61,11 @@ KERNELS = [
     ("dynstore_run", "linkpred_tpu_torch/kernels/csrc/dynstore.cu",
      "experiments/radix_probe.py:118"),
 ]
-# The slice of the port that redesigned K2 and the bitonic kernel
-# (`redesigned_in` in their rows of the record; the earlier design's times
-# are in PERF.md section 6).
-REDESIGNED_IN = 4
+# The slice of the port that redesigned each kernel (`redesigned_in` in
+# its row of the record; the earlier design's times are in PERF.md
+# section 6).  P1 is K1 at the prototype's configuration.
+REDESIGNED_IN = {"pack_survivors": 4, "make_pallas_sort": 4,
+                 "make_sort": 4, "fused_tail": 5, "pallas_tail": 5}
 # The card's memory rate and float32 rate outside the tensor cores
 # (H100 SXM data sheet): the roofline of every kernel here.
 HBM_BYTES_PER_S = 3.35e12
@@ -113,6 +118,37 @@ def cuda_ms(fn, iters: int = 20) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# A sleep kernel of this many cycles (~50 ms at the H100's clocks) holds the
+# stream while the host issues the calls that queued_ms times.
+SLEEP_CYCLES = 100_000_000
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls queued
+    behind a sleep kernel (after one warm-up call): the host issues every
+    call while the card sleeps, so the events time the device work back to
+    back, not the host's issue rate.  Fails if the issue outlasted half
+    the sleep's nominal time at 2 GHz."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    check(issue_ms < SLEEP_CYCLES / 2e9 * 1e3 / 2,
+          f"queued_ms: issuing {iters} calls took {issue_ms:.1f} ms, too "
+          "long for the sleep")
     return start.elapsed_time(end) / iters
 
 
@@ -194,15 +230,19 @@ def tail_stream(rng, cap, w_bits, fill, run_len, wide, n_wt, kill=0.0):
 
 
 def k1_vs_twin(name, mets, args, kw):
-    """K1 against its twin on the same card tensors; returns the largest
-    absolute score difference of the weighted metrics."""
+    """K1 against its twin on the same card tensors; returns the keys and
+    the largest absolute score difference of the weighted metrics.  Two
+    calls of K1 must give the same bits."""
     import torch
     from linkpred_tpu_torch.ops import fused_tail as ft
     from linkpred_tpu_torch.ops.topk import desc_key_score
 
     kk, ku, kv = ft.fused_tail(*args, **kw)
+    again = ft.fused_tail(*args, **kw)
     rk, ru, rv = ft.fused_tail_reference(*args, **kw)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((kk, ku, kv), again)),
+          f"K1 {name}: two calls differ")
     check(torch.equal(ku, ru) and torch.equal(kv, rv), f"K1 {name}: ku/kw")
     max_err = 0.0
     for i, m in enumerate(mets):
@@ -221,10 +261,17 @@ def k1_vs_twin(name, mets, args, kw):
     return kk, max_err
 
 
-def killed_runs_cross_blocks(hi, lo, keys, block=2048):
+def k1_tile() -> int:
+    """K1's tile: the lanes one CTA takes (``lp_fused_tail_tile_lanes``)."""
+    from linkpred_tpu_torch.kernels import _build
+
+    return _build.load().lp_fused_tail_tile_lanes()
+
+
+def killed_runs_cross_tiles(hi, lo, keys, tile):
     """Check the killer premise on the card's result: some killed runs
-    cross a kernel block with their killer in the earlier block, and no
-    killed run scored.  Returns the count of such runs."""
+    cross a K1 tile with their killer in the earlier tile, and no killed
+    run scored.  Returns the count of such runs."""
     from linkpred_tpu_torch.ops.topk import desc_key_score
 
     h, l_ = hi.cpu().numpy(), lo.cpu().numpy()
@@ -234,15 +281,81 @@ def killed_runs_cross_blocks(hi, lo, keys, block=2048):
     dead = (l_[start] & 1) == 0
     check(bool(np.all(desc_key_score(keys[0]).cpu().numpy()[end[dead]]
                       == -np.inf)), "K1 killers: a killed run scored")
-    return int((dead & (start // block != end // block)).sum())
+    return int((dead & (start // tile != end // tile)).sum())
+
+
+def runs_stream(rng, lengths, n_wt, dead=None):
+    """A sorted tile made of runs of the given lengths (distinct ascending
+    (w, u) pairs), random deg16 pairs and weights.  With ``dead`` (run
+    numbers) the payload is the edge stream's ``u << 1 | real`` and those
+    runs start with a killer lane of weight 0."""
+    pid = np.repeat(np.arange(len(lengths)), lengths)
+    w, u = pid // 7, pid % 7 + 1
+    cap = pid.shape[0]
+    dpack = ((rng.integers(1, 1 << 16, cap) << 16)
+             | rng.integers(1, 1 << 16, cap)).astype(np.uint32).view(np.int32)
+    wts = [(rng.random(cap) + 0.01).astype(np.float32) for _ in range(n_wt)]
+    if dead is not None:
+        real = np.ones(cap, np.int64)
+        real[np.r_[0, np.cumsum(lengths)[:-1]][list(dead)]] = 0
+        for x in wts:
+            x[real == 0] = 0.0
+        u = (u << 1) | real
+    return w.astype(np.int32), u.astype(np.int32), [dpack], wts
+
+
+def k1_shapes(device, rng):
+    """K1's inputs at the main paths' shapes (deg16, Jaccard): LHub
+    RMAT-19's packed tiles (cap 2^20, clean) and IHub RMAT-18's edge tiles
+    (cap 2^21, killers).  Yields (label, cap, args, kwargs)."""
+    import torch
+    from linkpred_tpu_torch.predict.metrics import METRICS
+
+    for label, c, w_bits, kill in (("clean", 1 << 20, 19, 0.0),
+                                   ("killers", 1 << 21, 18, 0.1)):
+        w, u, degs, _ = tail_stream(rng, c, w_bits, 0.97, 3, False, 0, kill)
+        args = (torch.as_tensor(w, device=device),
+                torch.as_tensor(u, device=device),
+                [torch.as_tensor(degs[0], device=device)], [], 0.0)
+        kw = dict(metrics=[METRICS["jaccard_coefficient"]], w_bits=w_bits,
+                  n=1 << w_bits, maxf2=0, killers=bool(kill))
+        yield label, c, args, kw
+
+
+def k1_time(args, kw, calls: int = 20):
+    """K1's device time per call on these inputs: the profiler's device ms
+    over ``calls`` calls (every kernel and memset, by name: events and ms
+    per call), and CUDA events around calls queued behind a sleep kernel.
+    Uses the ``linkpred_tpu_torch`` that imports first, so it times another
+    tree's K1 as well (``--k1-ab``)."""
+    from linkpred_tpu_torch.ops import fused_tail as ft
+
+    got = device_profile(lambda: [ft.fused_tail(*args, **kw)
+                                  for _ in range(calls)])
+    return dict(profiler_ms=sum(ms for _, ms in got.values()) / calls,
+                queued_ms=queued_ms(lambda: ft.fused_tail(*args, **kw),
+                                    calls),
+                per_call={n: (k / calls, ms / calls)
+                          for n, (k, ms) in got.items()})
+
+
+def k1_times():
+    """``k1_time`` at both main-path shapes, on inputs from seed 1."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    return {label: dict(cap=c, **k1_time(args, kw)) for label, c, args, kw
+            in k1_shapes(device, np.random.default_rng(1))}
 
 
 def phase_k1(device, rng):
     import torch
     from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.ops.topk import desc_key_score
     from linkpred_tpu_torch.predict.metrics import METRICS
 
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    tile = k1_tile()
     cap = 1 << 20
     cases = [
         # name, metrics, wide, min_score, maxf2, run_len, fill, killers
@@ -250,7 +363,7 @@ def phase_k1(device, rng):
         ("wide_pair", UNWEIGHTED, True, 0.0, 0, 4, 0.95, 0.0),
         ("aa_ra", ["adamic_adar", "resource_allocation"], False, 0.0, 0, 8,
          0.95, 0.0),
-        ("runs_over_a_block", ["common_neighbors", "adamic_adar"], False,
+        ("runs_over_a_tile", ["common_neighbors", "adamic_adar"], False,
          0.0, 0, 5000, 1.0, 0.0),
         ("min_score", ["jaccard_coefficient", "common_neighbors"], False,
          0.01, 0, 4, 0.9, 0.0),
@@ -264,7 +377,7 @@ def phase_k1(device, rng):
          0.95, 0.2),
         ("killers_wide_weighted", ["adamic_adar", "resource_allocation"],
          True, 0.0, 0, 8, 0.9, 0.2),
-        ("killers_runs_over_a_block", ["common_neighbors", "adamic_adar"],
+        ("killers_runs_over_a_tile", ["common_neighbors", "adamic_adar"],
          False, 0.0, 0, 5000, 1.0, 0.3),
     ]
     max_err = 0.0
@@ -281,33 +394,79 @@ def phase_k1(device, rng):
         max_err = max(max_err, err)
         note = ""
         if kill:
-            crossing = killed_runs_cross_blocks(args[0], args[1], keys)
-            if run_len > 2048:
+            crossing = killed_runs_cross_tiles(args[0], args[1], keys, tile)
+            if run_len > tile:
                 check(crossing > 0, f"K1 {name}: no killed run crosses a "
-                      "block")
-            note = f", {crossing} killed runs cross a block"
-        print(f"  K1 {name}: {len(mets)} metrics, cap {cap}: kernel == twin"
-              + note)
+                      "tile")
+            note = f", {crossing} killed runs cross a tile"
+        print(f"  K1 {name}: {len(mets)} metrics, cap {cap}: kernel == twin, "
+              "twice the same bits" + note)
+        if name == "killers_weighted":
+            # the same lanes as views one lane into their buffers: hi, and
+            # so the lanes' grouping, sits 4 bytes past a 16-byte boundary
+            def view(x):
+                buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+                buf[1:] = x
+                return buf[1:]
+
+            moved = (view(args[0]), view(args[1]), [view(d) for d in args[2]],
+                     [view(x) for x in args[3]], min_score)
+            check(moved[0].data_ptr() % 16 != 0, "K1: the view is aligned")
+            _, err = k1_vs_twin(f"{name} (views at lane 1)", mets, moved, kw)
+            max_err = max(max_err, err)
+            print(f"  K1 {name}, every input a view one lane into its "
+                  "buffer (not 16-byte aligned): kernel == twin")
+
+    # the deep look-back: runs of 3.5, 40 and 2 tiles, so a tile walks back
+    # past several predecessors (past a window of 32 in the 40-tile run);
+    # with killers, the 3.5-tile run starts with a killer in the first tile
+    lengths = [tile // 3, int(3.5 * tile), 5, 40 * tile + 17, 2 * tile, 9]
+    mets = [METRICS["common_neighbors"], METRICS["adamic_adar"]]
+    for dead in (None, (1,)):
+        w, u, degs, wts = runs_stream(rng, lengths, 1, dead)
+        args = (t(w), t(u), [t(degs[0])], [t(wts[0])], 0.0)
+        kw = dict(metrics=mets, w_bits=12, n=1 << 12, killers=dead is not None)
+        keys, err = k1_vs_twin("deep look-back", mets, args, kw)
+        max_err = max(max_err, err)
+        ends = np.cumsum(lengths) - 1
+        cn = desc_key_score(keys[0]).cpu().numpy()[ends]
+        alive = np.ones(len(lengths), bool)
+        alive[list(dead or ())] = False
+        check(np.array_equal(cn[alive], np.array(lengths)[alive])
+              and np.all(cn[~alive] == -np.inf),
+              "K1 deep look-back: run lengths")
+        what = "a killer in the first tile" if dead else "clean"
+        print(f"  K1 deep look-back ({what}): runs of "
+              f"{', '.join(map(str, lengths))} lanes: kernel == twin, the "
+              "run lengths as made")
 
     out = {}
-    for label, c, w_bits, kill in (("clean", 1 << 20, 19, 0.0),
-                                   ("killers", 1 << 21, 18, 0.1)):
-        # the main paths' shapes: deg16, Jaccard; LHub RMAT-19's packed
-        # tiles (cap 2^20) and IHub RMAT-18's edge tiles (cap 2^21)
-        w, u, degs, _ = tail_stream(rng, c, w_bits, 0.97, 3, False, 0, kill)
-        args = (t(w), t(u), [t(degs[0])], [], 0.0)
-        mets = [METRICS["jaccard_coefficient"]]
-        kw = dict(metrics=mets, w_bits=w_bits, n=1 << w_bits, maxf2=0,
-                  killers=bool(kill))
-        k1_vs_twin(f"{label} timing input", mets, args, kw)
-        ms = cuda_ms(lambda: ft.fused_tail(*args, **kw))
+    for label, c, args, kw in k1_shapes(device, rng):
+        k1_vs_twin(f"{label} timing input", kw["metrics"], args, kw)
+        tm = k1_time(args, kw)
+        per = tm["per_call"]
+        kernels = [n for n in per if "tail_onepass" in n]
+        memsets = [n for n in per if "emset" in n]
+        check(len(kernels) == 1 and per[kernels[0]][0] == 1
+              and len(per) == 1 + len(memsets)
+              and sum(per[n][0] for n in memsets) <= 1,
+              f"K1 {label}: device work per call {per}, not one launch of "
+              "the one-pass kernel and at most one memset")
+        events = cuda_ms(lambda: ft.fused_tail(*args, **kw))
         plain = cuda_ms(lambda: ft.fused_tail_reference(*args, **kw))
         b = bound(tail_bytes(c, False, 1, 0), 4 * c)
         print(f"  K1 time at cap 2^{c.bit_length() - 1}, deg16, Jaccard, "
-              f"{label} (kernel == twin on these inputs): kernel "
-              f"{ms:.4f} ms, twin {plain:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        out[label] = dict(ms=ms, plain_ms=plain, **b)
+              f"{label} (kernel == twin on these inputs): device "
+              f"{tm['profiler_ms']:.4f} ms a call (profiler, by launch: "
+              + ", ".join(f"{n[:60]} {ms * 1e3:.2f} us x {k:g}"
+                          for n, (k, ms) in per.items())
+              + f"), {tm['queued_ms']:.4f} ms queued behind a sleep, "
+              f"{events:.4f} ms issued back to back; twin {plain:.4f} ms; "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        out[label] = dict(ms=tm["profiler_ms"], queued_ms=tm["queued_ms"],
+                          events_ms=events, plain_ms=plain,
+                          launches_per_call={n: k for n, (k, _)
+                                             in per.items()}, **b)
     return dict(max_abs_err=max_err, **out["clean"], library_ms=None,
                 killers_cap_2_21=out["killers"])
 
@@ -329,14 +488,21 @@ def phase_p1(device, rng):
     torch.cuda.synchronize()
     for a, b, what in zip(got, want, ("keys", "ku", "kw")):
         check(torch.equal(a, b), f"P1: {what} not bit-equal to xla_tail")
-    ms = cuda_ms(lambda: p1.pallas_tail(hi, lo, dpack, 0.0))
+    # the probe's device work a call (K1's memset and launch, and the key's
+    # sign flip), from the profiler over 20 calls
+    got = device_profile(lambda: [p1.pallas_tail(hi, lo, dpack, 0.0)
+                                  for _ in range(20)])
+    ms = sum(t for _, t in got.values()) / 20
+    queued = queued_ms(lambda: p1.pallas_tail(hi, lo, dpack, 0.0))
     plain = cuda_ms(lambda: p1.xla_tail(hi, lo, dpack, 0.0))
     b = bound(tail_bytes(p1.LANES, False, 1, 0), 4 * p1.LANES)
     print(f"  P1 pallas_tail at 2^21 lanes, W_BITS 21: K1 == xla_tail bit "
-          f"for bit; K1 {ms:.4f} ms, xla_tail {plain:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms")
-    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
-                **b, library_ms=None)
+          f"for bit; device {ms:.4f} ms a call (profiler: " + ", ".join(
+              f"{n[:50]} {t / 20 * 1e3:.2f} us" for n, (_, t) in got.items())
+          + f"), {queued:.4f} ms queued behind a sleep; xla_tail "
+          f"{plain:.4f} ms, bound {b['bound_ms']:.4f} ms")
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, queued_ms=queued,
+                plain_ms=plain, **b, library_ms=None)
 
 
 # --------------------------------------------------------------- phase 3: K2
@@ -391,9 +557,9 @@ def phase_k2(device, rng):
     copy = torch.empty_like(key)
     copy_ms = cuda_ms(lambda: copy.copy_(key))
     del copy
-    parts = device_ms_of(lambda: compact.pack_survivors(key, thr))
+    parts = device_profile(lambda: compact.pack_survivors(key, thr))
     print("  K2 device time by launch (profiler, one call): " + ", ".join(
-        f"{name[:40]} {ms * 1e3:.1f} us" for name, ms in parts.items()))
+        f"{name[:40]} {ms * 1e3:.1f} us" for name, (_, ms) in parts.items()))
     count = int(compact.pack_survivors(key, thr)[2])
     capacity = total // compact.PACK_RATIO
     # read every key once; write every output lane (key and lane index, the
@@ -404,7 +570,7 @@ def phase_k2(device, rng):
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}); a copy of the keys "
           f"(67.1 MB read and written) {copy_ms:.4f} ms")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **b,
-                library_ms=lib_ms, redesigned_in=REDESIGNED_IN)
+                library_ms=lib_ms)
 
 
 # --------------------------------------------------- phase 4: end to end
@@ -599,8 +765,8 @@ def time_split(device, plan, y, k):
     split = {
         "pass": cuda_ms(one_pass, 5),
         "tile loop": cuda_ms(tiles, 5),
-        "K1 alone": cuda_ms(lambda: [ft.fused_tail(*a, **k_)
-                                     for a, k_ in sorted_in], 5),
+        "K1 alone": queued_ms(lambda: [ft.fused_tail(*a, **k_)
+                                       for a, k_ in sorted_in], 5),
         "selection": cuda_ms(lambda: scoring._select_topk(*buf, kk), 5),
     }
     one_pass()
@@ -668,10 +834,18 @@ def phase_main_path(device, scale: int = 19):
           "top device work of the pass:")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms:8.3f} ms  {name[:90]}")
+    print_k1_kernels(by_kernel)
     return launches
 
 
 # --------------------------------------------------- phase 6: IHub path
+
+def print_k1_kernels(by_kernel) -> None:
+    """K1's line(s) of a profiler table, top ten or not."""
+    for name, ms in by_kernel.items():
+        if "tail_" in name:
+            print(f"    K1: {ms:8.3f} ms  {name[:120]}")
+
 
 def bench_graph(scale: int):
     """R-MAT at the bench protocol: edge factor 16, seed 42, 0.1|E|
@@ -699,12 +873,13 @@ def recall_of(res, removed) -> float:
     return len(removed & got) / max(len(removed), 1)
 
 
-def device_ms_of(fn, tries: int = 3):
+def device_profile(fn, tries: int = 3):
     """The device work of one call of ``fn`` (after a warm-up call), from
-    the profiler: ``device_ms_by_kernel``.  A profiler session that records
-    no device event (seen on the card) is retried; after ``tries`` such
-    sessions the run fails."""
+    the profiler: {name: (events, device ms)}, in the order of each name's
+    first event.  A profiler session that records no device event (seen on
+    the card) is retried; after ``tries`` such sessions the run fails."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -714,7 +889,11 @@ def device_ms_of(fn, tries: int = 3):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        got = device_ms_by_kernel(prof)
+        got = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                n, ms = got.get(ev.name, (0, 0.0))
+                got[ev.name] = (n + 1, ms + ev.device_time_total / 1e3)
         if got:
             return got
     check(False, f"the profiler recorded no device event in {tries} sessions")
@@ -817,7 +996,7 @@ def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
     profiler table of the window's whole tiles.  K1 is held against its
     twin on every sorted tile of the window first.  Returns the window's
     size, the split, the profiler's device ms by kernel, the window's wall
-    ms and the count of killed runs that cross a K1 block."""
+    ms and the count of killed runs that cross a K1 tile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -852,7 +1031,7 @@ def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
     for j, (hi, lo, degs, wts) in enumerate(sorted_in):
         skeys, _ = k1_vs_twin(f"IHub edge tile {mid + j}", mets,
                               (hi, lo, degs, wts, 0.0), tail_kw)
-        crossing += killed_runs_cross_blocks(hi, lo, skeys)
+        crossing += killed_runs_cross_tiles(hi, lo, skeys, k1_tile())
         del skeys
     split = {
         "tile": cuda_ms(tiles, 3),
@@ -860,8 +1039,8 @@ def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
         "sort + payload gathers": cuda_ms(
             lambda: [scoring.keyed_sort(*a, deg16=plan.deg16,
                                         predpacked=False) for a in keyed], 3),
-        "K1 (killers)": cuda_ms(lambda: [ft.fused_tail(*a, 0.0, **tail_kw)
-                                         for a in sorted_in], 3),
+        "K1 (killers)": queued_ms(lambda: [ft.fused_tail(*a, 0.0, **tail_kw)
+                                           for a in sorted_in], 3),
     }
     split = {k: v / len(win) for k, v in split.items()}
     del keyed, sorted_in
@@ -945,7 +1124,7 @@ def phase_ihub(device, scale: int = 18):
     indices, degrees = lt.PlanCache().device_graph(y, device)
     # the path's tiles at their real shapes against the CPU, whose K1 is
     # the plain twin: an edge tile (K1 with killers, cap 2^21) and the hub
-    # sub-plan's fullest tile (clean K1 at cap 2^23, 4,096 kernel blocks)
+    # sub-plan's fullest tile (clean K1 at cap 2^23, 8,192 K1 tiles)
     live = np.flatnonzero(np.diff(plan.tile_start) > 0)
     mid = int(live[live.size // 2])
     fullest = int(np.argmax(np.diff(hp.tile_start)))
@@ -966,7 +1145,7 @@ def phase_ihub(device, scale: int = 18):
     n_win, split, by_kernel, wall, crossing = ihub_tile_split(
         device, plan, y, indices, degrees)
     print(f"  K1 with killers == twin on all {n_win} tiles of the window; "
-          f"{crossing} killed runs cross a K1 block there")
+          f"{crossing} killed runs cross a K1 tile there")
     print(f"  edge tile split over {n_win} tiles of cap {plan.cap} (ms per "
           "tile, each part timed alone): " + ", ".join(
               f"{name} {ms:.4f}" for name, ms in split.items()))
@@ -975,6 +1154,7 @@ def phase_ihub(device, scale: int = 18):
           f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%); top device work:")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {ms:8.3f} ms  {name[:90]}")
+    print_k1_kernels(by_kernel)
     del indices, degrees
     torch.cuda.empty_cache()
     return launches
@@ -1239,16 +1419,39 @@ def phase_sort_probes(device, rng):
     p2_row = row(keys, dict(launches=launches["make_pallas_sort"],
                             shape=f"2^{head} keys", kv=kv,
                             kv_by_size=by_size(1), keys_by_size=by_size(0),
-                            launches_per_sort=per_sort,
-                            redesigned_in=REDESIGNED_IN))
+                            launches_per_sort=per_sort))
     p3_row = row(table, dict(launches=launches["make_sort"],
                              shape=f"2^{head} key-value", by_size=by_size(2),
-                             launches_per_sort=per_sort,
-                             redesigned_in=REDESIGNED_IN))
+                             launches_per_sort=per_sort))
     p4_row = row(p4, dict(launches=launches["dynstore_run"],
                           shape="iters 32", library_ms=None,
                           per_store_us=radix["per_store_us"]))
     return p2_row, p3_row, p4_row, launches["pack_survivors"]
+
+
+def k1_ab(other: str) -> int:
+    """K1's device times (``k1_times``) of the tree at ``other`` and of this
+    one, each in a process of its own, in turns: other, this, this,
+    other.  Prints one JSON line per turn."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    check(os.path.isdir(os.path.join(other, "linkpred_tpu_torch")),
+          f"--k1-ab: no linkpred_tpu_torch in {other}")
+    print(card_line())
+    for tree in (other, here, here, other):
+        code = ("import importlib.util, json, sys; "
+                f"sys.path.insert(0, {tree!r}); "
+                "spec = importlib.util.spec_from_file_location("
+                f"'smoke', {os.path.join(here, 'chip_smoke.py')!r}); "
+                "m = importlib.util.module_from_spec(spec); "
+                "spec.loader.exec_module(m); "
+                "print(json.dumps(m.k1_times()))")
+        r = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                           capture_output=True, text=True, timeout=900)
+        check(r.returncode == 0, f"--k1-ab in {tree}: {r.stderr[-3000:]}")
+        print(json.dumps({"tree": tree, "k1": json.loads(
+            r.stdout.strip().splitlines()[-1])}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1258,6 +1461,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--k1-ab"]:
+        return k1_ab(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import linkpred_tpu_torch  # noqa: F401  (fails without the repository)
     from linkpred_tpu_torch.kernels import _build
@@ -1319,6 +1524,8 @@ def main() -> int:
         "make_sort": p3,
         "dynstore_run": p4,
     }
+    for name, pr in REDESIGNED_IN.items():
+        stats[name]["redesigned_in"] = pr
     record = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              **stats[name]) for name, src, rep in KERNELS]}

@@ -1,13 +1,14 @@
 """Builds and loads the port's CUDA kernels.
 
-One ``nvcc`` call compiles the sources in ``SOURCES`` (plain C interfaces,
-no PyTorch headers) for ``sm_90a`` into one shared library under
-``linkpred_tpu_torch/build/`` at first use; it rebuilds when a source is
-newer than the library.  The library is loaded with ctypes; tensors go in
-as ``data_ptr()`` and the stream as
-``torch.cuda.current_stream().cuda_stream``.  No ``--use_fast_math``: the
-float divides and square roots stay IEEE so unweighted scores match the
-plain twins bit for bit.  A missing ``nvcc`` or a failed build raises.
+One ``nvcc`` process per source in ``SOURCES`` (plain C interfaces, no
+PyTorch headers), all started together, compiles for ``sm_90a``; one more
+links the objects into one shared library under ``linkpred_tpu_torch/build/``
+at first use.  It rebuilds when a source is newer than the library.  The
+library is loaded with ctypes; tensors go in as ``data_ptr()`` and the
+stream as ``torch.cuda.current_stream().cuda_stream``.  No
+``--use_fast_math``: the float divides and square roots stay IEEE so
+unweighted scores match the plain twins bit for bit.  A missing ``nvcc`` or
+a failed build raises.
 """
 from __future__ import annotations
 
@@ -44,16 +45,35 @@ def _nvcc() -> str:
         "linkpred_tpu_torch/kernels/csrc with the CUDA toolkit's nvcc")
 
 
+def _run(cmds, what: str) -> None:
+    """Run the commands side by side; raise if any failed, once all ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}) {what}: "
+                               f"{' '.join(cmd)}\n{err}")
+
+
 def _build() -> None:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *SOURCES]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}) building {_SO}: "
-                           f"{' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, _SO)
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in SOURCES]
+    tmp = f"{_SO}.{tag}"
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+              for s, o in zip(SOURCES, objs)], f"compiling for {_SO}")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]],
+             f"linking {_SO}")
+        os.replace(tmp, _SO)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
 
 
 def load() -> ctypes.CDLL:
@@ -67,6 +87,8 @@ def load() -> ctypes.CDLL:
         _build()
     lib = ctypes.CDLL(_SO)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.lp_fused_tail_tile_lanes.restype = i32
+    lib.lp_fused_tail_tile_lanes.argtypes = []
     lib.lp_fused_tail_scratch_bytes.restype = i64
     lib.lp_fused_tail_scratch_bytes.argtypes = [i64]
     lib.lp_fused_tail.restype = i32

@@ -28,12 +28,15 @@ from .segment import cummax, run_boundaries, segment_run_totals
 from .topk import desc_score_key, spread_invalid
 
 __all__ = ["fused_tail", "fused_tail_reference", "score_keys", "LAUNCHES",
-           "KILLER_LAUNCHES"]
+           "KILLER_LAUNCHES", "MAX_CAP"]
 
 # Launches of the CUDA kernel (the wrapper adds one per launch), and of
 # those, the launches with the killer branch on.
 LAUNCHES = 0
 KILLER_LAUNCHES = 0
+
+# Lanes a tile may hold: the run start travels as start << 1 | alive.
+MAX_CAP = 1 << 30
 
 _CODES = {name: i for i, name in enumerate(METRICS)}
 
@@ -101,14 +104,19 @@ def fused_tail(hi, lo, degs, wts, min_score, *, metrics, w_bits: int,
     Returns ``(skeys int32[M, cap], ku int32[cap], kw int32[cap])``: the
     selection keys (``ops/topk.py`` form, spread applied) and the clamped
     pair ids.  Run boundaries come from comparing neighbouring (w, u)
-    pairs, which is what the reference's ``neq`` argument held."""
+    pairs, which is what the reference's ``neq`` argument held.  Raises
+    ``ValueError`` for ``cap >= 2^30``: a run start travels as
+    ``start << 1 | alive`` in an int32."""
+    cap = hi.shape[0]
+    if cap >= MAX_CAP:
+        raise ValueError(f"fused_tail: {cap} lanes, the int32 run starts "
+                         f"take fewer than {MAX_CAP}")
     if hi.device.type == "cpu":
         return fused_tail_reference(hi, lo, degs, wts, min_score,
                                     metrics=metrics, w_bits=w_bits, n=n,
                                     maxf2=maxf2, killers=killers)
     if hi.device.type != "cuda":
         raise ValueError(f"fused_tail: unsupported device {hi.device}")
-    cap = hi.shape[0]
     ints = (hi, lo, *degs)
     if len(degs) not in (1, 2) or len(wts) > 2 or len(wts) != sum(
             m.needs_weight for m in metrics) or len(metrics) > 16:
@@ -125,22 +133,30 @@ def fused_tail(hi, lo, degs, wts, min_score, *, metrics, w_bits: int,
 
     lib = _build.load()
     dev = hi.device
-    skeys = torch.empty((len(metrics), cap), dtype=torch.int32, device=dev)
-    ku = torch.empty(cap, dtype=torch.int32, device=dev)
-    kw = torch.empty(cap, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.lp_fused_tail_scratch_bytes(cap),
-                          dtype=torch.uint8, device=dev)
+    # one allocation: skeys, ku and kw start as far past a 16-byte boundary
+    # as hi does, so the kernel's 16-byte accesses line up with its loads;
+    # then the kernel's scratch (8-byte words)
+    head = hi.data_ptr() // 4 % 4
+    m = len(metrics)
+    o_ku = head + -(-m * cap // 4) * 4
+    o_kw = o_ku + -(-cap // 4) * 4
+    o_scratch = -(-(o_kw + cap) // 4) * 4
+    buf = torch.empty(o_scratch + lib.lp_fused_tail_scratch_bytes(cap) // 4,
+                      dtype=torch.int32, device=dev)
+    skeys = buf[head: head + m * cap].view(m, cap)
+    ku, kw = buf[o_ku: o_ku + cap], buf[o_kw: o_kw + cap]
     codes = 0
-    for i, m in enumerate(metrics):
-        codes |= _CODES[m.name] << (4 * i)
+    for i, met in enumerate(metrics):
+        codes |= _CODES[met.name] << (4 * i)
     err = lib.lp_fused_tail(
         dev.index, hi.data_ptr(), lo.data_ptr(), degs[0].data_ptr(),
         degs[1].data_ptr() if len(degs) == 2 else None,
         wts[0].data_ptr() if len(wts) > 0 else None,
         wts[1].data_ptr() if len(wts) > 1 else None,
-        cap, len(metrics), codes, w_bits, n, maxf2, float(min_score),
+        cap, m, codes, w_bits, n, maxf2, float(min_score),
         1 if killers else 0, skeys.data_ptr(), ku.data_ptr(), kw.data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        buf[o_scratch:].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused_tail")
     global LAUNCHES, KILLER_LAUNCHES
     LAUNCHES += 1

@@ -44,6 +44,7 @@ def rng():
 
 def test_kernels_build_and_load(cuda):
     lib = _build.load()
+    assert lib.lp_fused_tail_tile_lanes() > 0
     assert lib.lp_fused_tail_scratch_bytes(1 << 20) > 0
     assert lib.lp_pack_scratch_bytes(1 << 24) > 0
 
@@ -72,7 +73,7 @@ def _tail_inputs(rng, cap, w_bits, run_len, wide, n_wt, device, kill=0.0):
     wts = [(rng.random(cap) + 0.01).astype(np.float32) for _ in range(n_wt)]
     if kill:
         new = np.r_[True, (np.diff(w[:n_real]) != 0)
-                    | (np.diff(u[:n_real]) != 0)]
+                    | (np.diff(u[:n_real]) != 0)][:n_real]
         rid = np.cumsum(new) - 1
         kind = rng.choice(3, int(new.sum()), p=[1 - 2 * kill, kill, kill])
         real = np.ones(cap, bool)
@@ -116,7 +117,7 @@ def _kernel_vs_twin(hi, lo, degs, wts, min_score, mets, **kw):
     (1 << 16, ["common_neighbors", "adamic_adar"], False, 0.0, 0, 5000),
     (1 << 16, ["jaccard_coefficient"], False, 0.01, 0, 4),
     (1 << 15, ["hub_promoted", "resource_allocation"], False, 0.0, 2, 4),
-    # 4,096 kernel blocks: the block scan's several-blocks-per-thread loop
+    # the hub sub-plan's cap: 8,192 tiles of look-back words
     (1 << 23, ["jaccard_coefficient", "adamic_adar"], False, 0.0, 0, 3000),
 ])
 def test_fused_tail_kernel_vs_twin(rng, cuda, cap, names, wide, min_score,
@@ -140,8 +141,8 @@ def test_fused_tail_kernel_vs_twin(rng, cuda, cap, names, wide, min_score,
 def test_fused_tail_killers_kernel_vs_twin(rng, cuda, cap, names, wide,
                                            min_score, maxf2, run_len):
     """K1's killer branch (edge stream): runs are (w, lo >> 1), a run is
-    alive iff its first lane is real; long runs cross the kernel's
-    2,048-lane blocks with their killer in the earlier block."""
+    alive iff its first lane is real; long runs cross the kernel's tiles
+    with their killer in the earlier tile."""
     mets = [lt.METRICS[m] for m in names]
     n_wt = sum(m.needs_weight for m in mets)
     hi, lo, degs, wts = _tail_inputs(rng, cap, 20, run_len, wide, n_wt, cuda,
@@ -156,9 +157,134 @@ def test_fused_tail_killers_kernel_vs_twin(rng, cuda, cap, names, wide,
     assert dead.any() and not dead.all(), "test premise"
     assert np.all(desc_key_score(kk[0]).cpu().numpy()[end[dead]]
                   == -np.inf), "a killed run scored"
-    if run_len > 2048:
-        crosses = dead & (start // 2048 != end // 2048)
-        assert crosses.any(), "test premise: killed runs cross blocks"
+    tile = _build.load().lp_fused_tail_tile_lanes()
+    if run_len > tile:
+        crosses = dead & (start // tile != end // tile)
+        assert crosses.any(), "test premise: killed runs cross tiles"
+
+
+def _runs(rng, lengths, names, killers=False, dead=()):
+    """Sorted lanes made of runs of the given lengths (distinct ascending
+    (w, u) pairs), random deg16 pairs and weights; with ``killers`` the
+    runs numbered in ``dead`` start with a killer lane (weight 0)."""
+    mets = [lt.METRICS[m] for m in names]
+    pid = np.repeat(np.arange(len(lengths)), lengths)
+    w, u = pid // 7, pid % 7 + 1
+    cap = pid.shape[0]
+    dpack = ((rng.integers(1, 1 << 16, cap) << 16)
+             | rng.integers(1, 1 << 16, cap)).astype(np.uint32).view(np.int32)
+    wts = [(rng.random(cap) + 0.01).astype(np.float32)
+           for m in mets if m.needs_weight]
+    if killers:
+        real = np.ones(cap, np.int64)
+        starts = np.r_[0, np.cumsum(lengths)[:-1]]
+        real[starts[list(dead)]] = 0
+        for x in wts:
+            x[real == 0] = 0.0
+        u = (u << 1) | real
+    return (w.astype(np.int32), u.astype(np.int32), [dpack], wts), mets
+
+
+def _on(device, arrays):
+    hi, lo, degs, wts = arrays
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return t(hi), t(lo), [t(d) for d in degs], [t(x) for x in wts]
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+@pytest.mark.parametrize("killers", [False, True])
+def test_fused_tail_kernel_tile_edges(rng, cuda, offset, killers):
+    """cap = the tile size - 1, the tile size, + 1; and cap 1."""
+    tile = _build.load().lp_fused_tail_tile_lanes()
+    names = ["jaccard_coefficient", "adamic_adar", "resource_allocation"]
+    for cap in (tile + offset, 1):
+        mets = [lt.METRICS[m] for m in names]
+        hi, lo, degs, wts = _tail_inputs(rng, cap, 12, 3, False, 2, cuda,
+                                         kill=0.2 if killers else 0.0)
+        _kernel_vs_twin(hi, lo, degs, wts, 0.0, mets, w_bits=12, n=1 << 12,
+                        killers=killers)
+
+
+@pytest.mark.parametrize("cap", [1, 3, 4097, 100_003])
+@pytest.mark.parametrize("shift", ["all", "hi_only"])
+def test_fused_tail_kernel_misaligned_views(rng, cuda, cap, shift):
+    """Inputs that are views one lane into their buffers (not 16-byte
+    aligned), all of them or hi alone (the other arrays then line up
+    otherwise and take scalar accesses); caps no multiple of 4 but one."""
+    names = ["jaccard_coefficient", "common_neighbors", "adamic_adar"]
+    mets = [lt.METRICS[m] for m in names]
+    for killers in (False, True):
+        args = _tail_inputs(rng, cap, 12, 5, True, 1, cuda,
+                            kill=0.2 if killers else 0.0)
+
+        def view(x, move):
+            if not move:
+                return x
+            buf = torch.empty(cap + 1, dtype=x.dtype, device=cuda)
+            buf[1:] = x
+            return buf[1:]
+
+        hi, lo, degs, wts = args
+        hi = view(hi, True)
+        assert hi.data_ptr() % 16 != 0 and hi.is_contiguous()
+        rest = shift == "all"
+        lo, degs, wts = (view(lo, rest), [view(d, rest) for d in degs],
+                         [view(x, rest) for x in wts])
+        _kernel_vs_twin(hi, lo, degs, wts, 0.0, mets, w_bits=12, n=1 << 12,
+                        killers=killers)
+
+
+@pytest.mark.parametrize("killers,dead", [
+    (False, ()), (True, ()), (True, (1,)), (True, (1, 3))])
+def test_fused_tail_kernel_deep_look_back(rng, cuda, killers, dead):
+    """Runs spanning 3 to 40 tiles, so a tile's look-back walks past
+    several predecessors (and past a window of 32), with and without a
+    killer lane at the start of a long run: run 1 begins in the first tile
+    and ends in the fourth."""
+    tile = _build.load().lp_fused_tail_tile_lanes()
+    lengths = [tile // 3, int(3.5 * tile), 5, 40 * tile + 17, 2 * tile, 9]
+    arrays, mets = _runs(rng, lengths, ["common_neighbors", "adamic_adar"],
+                         killers, dead)
+    hi, lo, degs, wts = _on(cuda, arrays)
+    kk = _kernel_vs_twin(hi, lo, degs, wts, 0.0, mets, w_bits=12, n=1 << 12,
+                         killers=killers)
+    ends = np.cumsum(lengths) - 1
+    got = desc_key_score(kk[0]).cpu().numpy()[ends]
+    alive = np.ones(len(lengths), bool)
+    alive[list(dead)] = False
+    np.testing.assert_array_equal(got[alive], np.array(lengths)[alive])
+    assert np.all(got[~alive] == -np.inf)
+
+
+@pytest.mark.parametrize("killers", [False, True])
+def test_fused_tail_kernel_one_run(rng, cuda, killers):
+    """A single run over the whole cap (every tile's look-back walks to
+    tile 0), and every lane a run of its own."""
+    tile = _build.load().lp_fused_tail_tile_lanes()
+    cap = 70 * tile + 3
+    for lengths in ([cap], [1] * cap):
+        arrays, mets = _runs(rng, lengths, ["jaccard_coefficient",
+                                            "adamic_adar",
+                                            "resource_allocation"], killers)
+        _kernel_vs_twin(*_on(cuda, arrays), 0.0, mets, w_bits=16, n=1 << 16,
+                        killers=killers)
+
+
+def test_fused_tail_kernel_back_to_back_bit_equal(rng, cuda):
+    """Two calls on one stream with no sync between, AA/RA with long runs:
+    each starts from fresh look-back words, and the weight sums come out
+    in the same bits."""
+    names = ["adamic_adar", "resource_allocation", "jaccard_coefficient"]
+    mets = [lt.METRICS[m] for m in names]
+    hi, lo, degs, wts = _tail_inputs(rng, (1 << 20) + 3, 20, 700, False, 2,
+                                     cuda, kill=0.2)
+    kw = dict(metrics=mets, w_bits=20, n=1 << 20, killers=True)
+    first = ft.fused_tail(hi, lo, degs, wts, 0.0, **kw)
+    second = ft.fused_tail(hi, lo, degs, wts, 0.0, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _kernel_vs_twin(hi, lo, degs, wts, 0.0, mets, **{
+        k: v for k, v in kw.items() if k != "metrics"})
 
 
 @pytest.mark.parametrize("dist", ["random", "clustered", "none", "all"])

@@ -3,7 +3,8 @@ package's Pallas ``fused_tail`` (interpret mode on the CPU) and against the
 reference's XLA tail (``_keyed_sort_reduce`` with ``fused=False``), in both
 branches: the packed stream's clean lanes and the edge stream's killer
 lanes (``lo = u << 1 | real``).  The CUDA kernel against the twin is in
-test_torch_cuda.py.
+test_torch_cuda.py; here a numpy model of the kernel's decomposition (tiles,
+aggregates, the look-back) is held against the twin.
 
 Tolerances: keys, ku and kw bit-equal for the unweighted metrics, except
 Salton's scores, within 2 ulp of the reference (its XLA rewrites
@@ -317,3 +318,143 @@ def test_pack_pair_sign_bit():
     np.testing.assert_array_equal(got.numpy(), want)
     ud, wd = ft._unpack((got,))
     assert torch.equal(ud, du) and torch.equal(wd, dw)
+
+
+def test_wrapper_refuses_cap_2_30():
+    """The run start travels as ``start << 1 | alive`` in an int32, so the
+    wrapper refuses 2^30 lanes before it looks at the device."""
+    x = torch.empty(ft.MAX_CAP, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="run starts"):
+        ft.fused_tail(x, x, [x], [], 0.0,
+                      metrics=[port_metrics.METRICS["common_neighbors"]],
+                      w_bits=8, n=256)
+
+
+def _model_tail(x, tile, head, rng):
+    """Test-only model, in numpy, of the CUDA kernel's decomposition
+    (``kernels/csrc/fused_tail.cu``).  The lanes are cut into tiles of
+    ``tile`` lanes, the first one ``head`` lanes short; each tile folds
+    its aggregate carry (the last run start as ``start << 1 | alive``, and
+    the weight sums since it); each tile looks back, in tile order, to the
+    nearest predecessor that either has its inclusive carry visible (each
+    one is, with probability 1/2 from ``rng``) or whose aggregate holds a
+    run start, and folds forward from there; then it emits.  Scores come
+    from the twin's ``score_keys``.  Returns ``(skeys, ku, kw)`` and the
+    tiles' carries-in."""
+    hi, lo, killers = x["hi"], x["lo"], x["killers"]
+    cap = hi.shape[0]
+    src = lo >> 1 if killers else lo
+    new = (hi[1:] != hi[:-1]) | (src[1:] != src[:-1])
+    start, end = np.r_[True, new], np.r_[new, True]
+    alive = lo & 1 if killers else np.ones(cap, np.int64)
+    wts = [np.asarray(w, np.float32) for w in x["wts"]]
+    ident = (-1, tuple(np.float32(0) for _ in wts))
+
+    def lane(i):
+        return (int(i << 1 | alive[i]) if start[i] else -1,
+                tuple(w[i] for w in wts))
+
+    def combine(a, b):
+        if b[0] >= 0:
+            return b
+        return a[0], tuple(np.float32(p + q) for p, q in zip(a[1], b[1]))
+
+    n_tiles = -(-(cap + head) // tile)
+    spans = [range(max(t * tile - head, 0), min((t + 1) * tile - head, cap))
+             for t in range(n_tiles)]
+    agg = []
+    for span in spans:
+        c = ident
+        for i in span:
+            c = combine(c, lane(i))
+        agg.append(c)
+    incl, carry_in = [], []
+    for t in range(n_tiles):
+        p, c = t - 1, ident
+        while p >= 0:
+            if rng.random() < 0.5:
+                c = incl[p]
+                break
+            if agg[p][0] >= 0:
+                c = agg[p]
+                break
+            p -= 1
+        for q in range(p + 1, t):
+            c = combine(c, agg[q])
+        carry_in.append(c)
+        incl.append(combine(c, agg[t]))
+    ps = np.empty(cap, np.int64)
+    sums = np.zeros((len(wts), cap), np.float32)
+    for t, span in enumerate(spans):
+        run = carry_in[t]
+        for i in span:
+            run = combine(run, lane(i))
+            ps[i] = run[0]
+            sums[:, i] = run[1]
+    iota = torch.arange(cap, dtype=torch.int32)
+    mets = [port_metrics.METRICS[m] for m in x["names"]]
+    du, dw = ft._unpack([torch.as_tensor(d) for d in x["degs"]])
+    hi_t = torch.as_tensor(hi)
+    valid = torch.as_tensor(end & (ps & 1 == 1)) & (hi_t < (1 << x["w_bits"]))
+    if x["maxf2"]:
+        valid &= port_metrics.maxf2_mask(du, dw, x["maxf2"])
+    cnt = iota - torch.as_tensor(ps >> 1, dtype=torch.int32) + 1
+    weighted = [m.name for m in mets if m.needs_weight]
+    accs = {name: torch.as_tensor(s) for name, s in zip(weighted, sums)}
+    skeys = ft.score_keys(mets, cnt, accs, du, dw, valid, x["min_score"],
+                          iota)
+    out = (skeys, torch.as_tensor(src).clamp(max=x["n"] - 1),
+           hi_t.clamp(max=x["n"] - 1))
+    return [o.numpy() for o in out], carry_in
+
+
+MODEL_METRICS = {
+    0: ("jaccard_coefficient", "common_neighbors"),
+    1: ("adamic_adar", "sorensen_index"),
+    2: ("resource_allocation", "jaccard_coefficient", "adamic_adar"),
+}
+
+
+@pytest.mark.parametrize("killers", [False, True])
+@pytest.mark.parametrize("n_wt", [0, 1, 2])
+@pytest.mark.parametrize("run_len", [3, 40, 400])
+@pytest.mark.parametrize("tile,head", [(16, 0), (32, 1), (64, 3)])
+def test_tile_model_vs_twin(rng, tile, head, run_len, n_wt, killers):
+    """The kernel's decomposition (tiles, aggregates, a look-back that
+    stops at the first predecessor holding a run start or an inclusive
+    carry, the emit) against the twin, with runs within a tile (3 lanes),
+    over a few tiles (40) and over many (400); with and without killers;
+    with 0-2 weight arrays.  Two walks that stop at different predecessors
+    give the same bits."""
+    cap, w_bits = 1024, 10
+    hi, lo, degs, wts = _sorted_stream(rng, cap, w_bits, 0.9, run_len,
+                                       kill=0.3 if killers else 0.0)
+    names = list(MODEL_METRICS[n_wt])
+    x = dict(hi=hi, lo=lo, degs=degs, wts=wts[:n_wt], names=names,
+             w_bits=w_bits, n=1 << w_bits, min_score=0.0, maxf2=2 * n_wt,
+             killers=killers)
+    got, carries = _model_tail(x, tile, head, np.random.default_rng(1))
+    again, carries_again = _model_tail(x, tile, head,
+                                       np.random.default_rng(2))
+    assert carries == carries_again
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(a, b)
+    want = _port(x)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    for i, name in enumerate(names):
+        if not port_metrics.METRICS[name].needs_weight:
+            np.testing.assert_array_equal(got[0][i], want[0][i])
+            continue
+        a = _decode(_to_u32(got[0][i]))
+        b = _decode(_to_u32(want[0][i]))
+        _assert_scores(a, b, name)
+        inv = np.isneginf(b)
+        np.testing.assert_array_equal(got[0][i][inv], want[0][i][inv])
+    src = lo >> 1 if killers else lo
+    first = np.r_[0, np.flatnonzero(np.diff(hi) | np.diff(src)) + 1]
+    last = np.r_[first[1:], cap] - 1
+    tiles = (last + head) // tile - (first + head) // tile + 1
+    # test premise: runs lie within a tile, span two, or span many
+    assert tiles.max() >= {3: 2, 40: 2, 400: 6}[run_len]
+    assert run_len > 3 or np.diff(first).max() < tile
