@@ -18,6 +18,12 @@ tile, two tiles, 2^18-2^21, 2^23), timed at 2^18-2^23 against
 ``torch.sort``, and the radix probe (``torch.sort``, K2 at ``ratio=1`` as
 a 1-bit split, P4's dynamic stores in ``dynstore.cu``).
 
+Phase 8 drives the experiment driver, ``cli.main``, as a user runs it: on
+a planted-partition graph against the same sweep on the CPU (the kernels'
+plain versions), on RMAT-18 written as MTX (all 9 metrics, thresholds 4
+and 64, two deletion fractions, fused and unfused, the logs parsed into
+CSV), and ``python -m linkpred_tpu_torch`` as a subprocess.
+
     python3 chip_smoke.py [scale]
     python3 chip_smoke.py --k1-ab OTHER_TREE
 
@@ -1429,6 +1435,364 @@ def phase_sort_probes(device, rng):
     return p2_row, p3_row, p4_row, launches["pack_survivors"]
 
 
+# ------------------------------------------ phase 8: the experiment driver
+
+# Phase 8's sweeps: one batch repeat and one timed pass for the planted
+# graph and the subprocess; RMAT-18 takes two fractions and the reference's
+# repeat-method 5.
+DRIVER_SWEEP = ["--repeat-batch", "1", "--repeat-method", "1"]
+RMAT_DRIVER = ["--degrees", "4,64", "--deletions-begin", "0.01",
+               "--deletions-end", "0.1", "--repeat-batch", "1",
+               "--repeat-method", "5", "--seed", "42"]
+
+
+def nonempty_tiles(plan) -> int:
+    """The tiles of ``plan`` and its sub-plans that hold slots: one K1
+    launch each in every scoring pass."""
+    from linkpred_tpu_torch.predict import api
+
+    return sum(int(np.count_nonzero(np.diff(p.tile_start) > 0))
+               for p in (plan, *api._sub_plans(plan)))
+
+
+class DriverProbe:
+    """Instruments one run of the experiment driver by wrapping what the
+    harness and the CLI call: per result row, the predicted pairs tied with
+    the k-th score and the counts behind precision and recall; per plan,
+    its hub threshold and non-empty tiles (sub-plans included); per batch,
+    the host time of sample + tidy + apply and the device memory allocated
+    right after the batch's plan cache is cleared; the ``read_mtx`` wall
+    time.  Restores every wrapped name on exit."""
+
+    def __init__(self, device):
+        self.device = device
+        self.ties, self.counts, self.batch_s, self.mem = [], [], [], []
+        self.plans, self._plan_ids = [], set()
+        self.read_s = None
+        self._saved = []
+
+    def _patch(self, mod, name, fn):
+        self._saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def __enter__(self):
+        import torch
+        from linkpred_tpu_torch import cli
+        from linkpred_tpu_torch.bench import harness as h
+
+        multi, single, common = (h.predict_links_multi, h.predict_links,
+                                 h.common_pair_count)
+        dels, apply, read, cache = (h.generate_edge_deletions, h.apply_batch,
+                                    cli.read_mtx, h.PlanCache)
+        probe, t_batch = self, []
+
+        def ties(res, k):
+            if not len(res) or len(res) < k:
+                return 0
+            return int(np.count_nonzero(res.score
+                                        <= res.score[-1] * (1 + 1e-5)))
+
+        def rec_multi(g, metrics, **kw):
+            out = multi(g, metrics, **kw)
+            probe.ties += [ties(out[m], kw["options"].max_edges)
+                           for m in metrics]
+            return out
+
+        def rec_single(g, metric, **kw):
+            out = single(g, metric=metric, **kw)
+            probe.ties.append(ties(out, kw["options"].max_edges))
+            return out
+
+        def rec_common(a, b):
+            c = common(a, b)
+            probe.counts.append((c, a.shape[0], b.shape[0]))
+            return c
+
+        def rec_dels(*a, **kw):
+            t_batch.append(time.perf_counter())
+            return dels(*a, **kw)
+
+        def rec_apply(*a, **kw):
+            out = apply(*a, **kw)
+            probe.batch_s.append(time.perf_counter() - t_batch.pop())
+            return out
+
+        def rec_read(*a, **kw):
+            t0 = time.perf_counter()
+            out = read(*a, **kw)
+            probe.read_s = time.perf_counter() - t0
+            return out
+
+        class Cache(cache):
+            def get(self, g, min_degree1, *a, **kw):
+                plan = super().get(g, min_degree1, *a, **kw)
+                if id(plan) not in probe._plan_ids:
+                    probe._plan_ids.add(id(plan))
+                    probe.plans.append((min_degree1, nonempty_tiles(plan)))
+                return plan
+
+            def clear(self):
+                super().clear()
+                probe.mem.append(torch.cuda.memory_allocated(probe.device)
+                                 if torch.device(probe.device).type == "cuda"
+                                 else 0)
+
+        for mod, name, fn in ((h, "predict_links_multi", rec_multi),
+                              (h, "predict_links", rec_single),
+                              (h, "common_pair_count", rec_common),
+                              (h, "generate_edge_deletions", rec_dels),
+                              (h, "apply_batch", rec_apply),
+                              (h, "PlanCache", Cache),
+                              (cli, "read_mtx", rec_read)):
+            self._patch(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process with its standard output
+    captured; returns the log's text."""
+    import contextlib
+    import io
+
+    from linkpred_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli.main({argv}) returned {rc}")
+    return out.getvalue()
+
+
+def rows_match(where, got, p_got, want, p_want, tag=None):
+    """Rows of two runs of one sweep, row by row: the same fractions,
+    thread label and technique (``tag``: the ``(got, want)`` backend tags
+    where they differ); the same removed and predicted pair counts; common
+    pairs equal or apart by no more than twice the pairs tied with the k-th
+    score (each side may pick others among those).  Returns how many rows
+    differ within that allowance."""
+    check(len(got) == len(want) == len(p_got.counts) == len(p_want.counts)
+          == len(p_got.ties) == len(p_want.ties) > 0,
+          f"{where}: {len(got)} against {len(want)} rows")
+    differ = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        tech = b["technique"] if tag is None else \
+            b["technique"].replace(tag[1], tag[0])
+        for f in ("batch_deletions_fraction", "batch_insertions_fraction",
+                  "num_threads"):
+            check(a[f] == b[f], f"{where} row {i}: {f} {a[f]} != {b[f]}")
+        check(a["technique"] == tech,
+              f"{where} row {i}: {a['technique']} != {tech}")
+        (ca, da, ia), (cb, db, ib) = p_got.counts[i], p_want.counts[i]
+        check((da, ia) == (db, ib),
+              f"{where} {tech}: removed/predicted pairs {da, ia} != {db, ib}")
+        allow = 2 * max(p_got.ties[i], p_want.ties[i])
+        check(abs(ca - cb) <= allow, f"{where} {tech}: common pairs {ca} "
+              f"against {cb}, beyond the {allow} the k-th score's ties allow")
+        differ += ca != cb
+    return differ
+
+
+def phase_driver_vs_plain(device, tmp):
+    """Part (a): ``cli.main`` on the card against ``run_experiment`` on
+    the CPU (the kernels' plain versions), same seed, all 9 metrics, hub
+    thresholds 0, 4, 64, one deletion fraction, on a planted-partition
+    graph of 2,000 vertices written by the port's ``write_mtx``.  Returns
+    the K1 and K2 launches of the card's run and the graph's path."""
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.bench import harness
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.ops.transform import remove_self_loops
+
+    # 2 tiles of 2^20 slots at thresholds 0 and 64 (4 padded): the
+    # selection buffer reaches the survivor pack's 2^22 lanes
+    g = planted_partition_graph(20, 100, p_in=0.3, p_out=0.0005, seed=3)
+    path = os.path.join(tmp, "planted.mtx")
+    lt.write_mtx(g, path)
+    sweep = ["--degrees", "0,4,64", "--deletions-begin", "0.1",
+             "--deletions-end", "0.1", "--seed", "7", *DRIVER_SWEEP]
+
+    ft.LAUNCHES = compact.LAUNCHES = 0
+    with DriverProbe(device) as p_card:
+        log = run_cli([path, "1", "0", "--jsonl", "--device", device.type,
+                       *sweep])
+    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    got = [json.loads(ln) for ln in log.splitlines() if ln.startswith("{")]
+
+    y = remove_self_loops(lt.read_mtx(path))
+    cfg = harness.ExperimentConfig(
+        repeat_batch=1, repeat_method=1, deletions_begin=0.1,
+        deletions_end=0.1, degrees=(0, 4, 64), seed=7, device="cpu")
+    with DriverProbe("cpu") as p_cpu:
+        want = harness.run_experiment(y, cfg, emit=lambda _: None)
+    differ = rows_match("driver (a) card against CPU", got, p_card, want,
+                        p_cpu)
+    check(len(got) == 9 * 3, f"driver (a): {len(got)} rows, not 27")
+    check(max(r["recall"] for r in got) > 0,
+          "driver (a): every recall is zero")
+    check(all(v > 0 for v in launches.values()),
+          f"driver (a): a kernel never launched: {launches}")
+    best = max(got, key=lambda r: r["recall"])
+    print(f"  planted(20 x 100): n={g.n} |E|={g.m}; cli.main --device "
+          f"{device.type} "
+          f"== run_experiment on the CPU in {len(got)} rows (all 9 metrics "
+          f"x thresholds 0, 4, 64; {differ} rows apart within the k-th "
+          f"score's ties); best recall {best['recall']:.6g} "
+          f"({best['technique']}); launches {launches}")
+    return launches, path
+
+
+def phase_driver_rmat(device, tmp, scale: int = 18):
+    """Part (b): ``cli.main`` on R-MAT-``scale`` at the bench protocol's
+    generator (edge factor 16, seed 42), written as pattern/general MTX of
+    its upper triangle, so the driver's symmetrize runs; all 9 metrics,
+    thresholds 4 and 64, deletion fractions 0.01 and 0.1, repeat-method 5;
+    fused, then ``--unfused``.  Both logs go through the port's
+    post-processor.  Returns the K1 and K2 launches of both runs."""
+    import torch
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.bench import process
+    from linkpred_tpu_torch.bench.synth import rmat_graph
+    from linkpred_tpu_torch.graph import edge_list
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+
+    t_phase = time.perf_counter()
+    g = rmat_graph(scale, edge_factor=16, seed=42)
+    src, dst = edge_list(g)
+    name = f"rmat{scale}"
+    path = os.path.join(tmp, f"{name}.mtx")
+    t0 = time.perf_counter()
+    lt.write_mtx(lt.from_edges(src[src < dst], dst[src < dst], n=g.n), path)
+    print(f"  RMAT-{scale}: n={g.n} |E|={g.m}; its upper triangle written "
+          f"as pattern/general MTX ({os.path.getsize(path)} bytes) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    launches = {"fused_tail": 0, "pack_survivors": 0}
+    runs = {}
+    for mode in ("fused", "unfused"):
+        extra = ["--unfused"] if mode == "unfused" else []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ft.LAUNCHES = compact.LAUNCHES = 0
+        with DriverProbe(device) as probe:
+            t0 = time.perf_counter()
+            log = run_cli([path, "0", "0", "--device", device.type,
+                           *RMAT_DRIVER, *extra])
+            wall = time.perf_counter() - t0
+        got = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        log_path = os.path.join(tmp, f"{name}-{mode}.log")
+        with open(log_path, "w") as f:
+            f.write(log)
+        csv_path = os.path.join(tmp, f"{name}-{mode}.csv")
+        check(process.main(["csv", log_path, csv_path]) == 0,
+              f"driver (b) {mode}: the post-processor failed")
+        data = process.read_log(log_path)
+        check(list(data) == [name], f"driver (b) {mode}: graphs {list(data)}")
+        rows = data[name]
+        with open(csv_path) as f:
+            csv_rows = f.read().count("\n") - 1
+        check(len(rows) == csv_rows == 36,
+              f"driver (b) {mode}: {len(rows)} rows, {csv_rows} in the CSV, "
+              "not 36 (9 metrics x 2 thresholds x 2 fractions)")
+        check(all(r["order"] == g.n and r["size"] == g.m for r in rows),
+              f"driver (b) {mode}: order/size not {g.n}/{g.m}")
+        check(all(0 <= r[f] <= 1 for r in rows for f in ("precision",
+                                                          "recall")),
+              f"driver (b) {mode}: precision or recall outside [0, 1]")
+        check(max(r["recall"] for r in rows) > 0,
+              f"driver (b) {mode}: every recall is zero")
+        check(all(v > 0 for v in got.values()),
+              f"driver (b) {mode}: a kernel never launched: {got}")
+        # one K1 launch per non-empty tile in each of a call's 6 passes (1
+        # warm-up + repeat-method 5); unfused, each metric is its own call
+        calls = 9 if mode == "unfused" else 1
+        tiles = sum(t for _, t in probe.plans)
+        check(got["fused_tail"] == calls * 6 * tiles,
+              f"driver (b) {mode}: {got['fused_tail']} K1 launches, not "
+              f"{calls} x 6 x {tiles} tiles")
+        check(len(probe.mem) == 2 and probe.mem[1] <= probe.mem[0],
+              f"driver (b) {mode}: device memory after each epoch "
+              f"{probe.mem} grew")
+        # the counts behind the log's 4-digit precision and recall
+        full = [dict(r, precision=c / max(i, 1), recall=c / max(d, 1))
+                for r, (c, d, i) in zip(rows, probe.counts)]
+        check(all(f"{r['precision']:.3e}" == f"{x['precision']:.3e}"
+                  and f"{r['recall']:.3e}" == f"{x['recall']:.3e}"
+                  for r, x in zip(rows, full)),
+              f"driver (b) {mode}: logged precision/recall != the counts'")
+        runs[mode] = (full, probe)
+        for k in launches:
+            launches[k] += got[k]
+        print(f"  {mode}: cli.main wall {wall:.3f} s; read_mtx "
+              f"{probe.read_s:.3f} s; host batch (sample, tidy, apply) per "
+              f"epoch {', '.join(f'{s:.3f}' for s in probe.batch_s)} s; "
+              f"device memory after each epoch "
+              f"{', '.join(str(m) for m in probe.mem)} B, peak "
+              f"{peak_gb:.3f} GB; launches {got}; non-empty tiles by "
+              f"threshold {probe.plans}; 36 rows (total ms / scoring ms):")
+        for i in range(0, 36, 3):
+            print("    " + "; ".join(
+                f"{r['technique']} @{r['batch_insertions_fraction']:g}: "
+                f"{r['total_time']:.1f} / {r['scoring_time']:.1f}"
+                for r in rows[i:i + 3]))
+        best = max(full, key=lambda r: r["recall"])
+        print(f"    best recall {best['recall']:.6g} ({best['technique']} at "
+              f"{best['batch_insertions_fraction']:g})")
+    differ = rows_match("driver (b) fused against unfused", *runs["fused"],
+                        *runs["unfused"], tag=("CudaFused", "Cuda"))
+    print(f"  fused == unfused in precision and recall in 36 rows ({differ} "
+          "apart within the k-th score's ties); part (b) wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_driver_subprocess(path):
+    """Part (c): the real entry point, ``python -m linkpred_tpu_torch``,
+    as a subprocess on the card; its log must parse."""
+    from linkpred_tpu_torch.bench import process
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "linkpred_tpu_torch", path, "1", "0",
+            "--metrics", "cn,aa", "--degrees", "0,32", "--deletions-begin",
+            "0.05", "--deletions-end", "0.05", "--seed", "5", *DRIVER_SWEEP]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=here, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m linkpred_tpu_torch: rc "
+          f"{r.returncode}: {r.stderr[-3000:]}")
+    log_path = os.path.splitext(path)[0] + "-subprocess.log"
+    with open(log_path, "w") as f:
+        f.write(r.stdout)
+    rows = process.read_log(log_path).get("planted", [])
+    check(len(rows) == 4 and all(r["technique"].endswith(("CudaFused0",
+                                                          "CudaFused32"))
+                                 for r in rows),
+          f"python -m linkpred_tpu_torch: rows {rows}")
+    print(f"  python -m linkpred_tpu_torch planted.mtx 1 0 --metrics cn,aa "
+          f"--degrees 0,32: rc 0 in {wall:.1f} s, 4 rows parsed")
+
+
+def phase_driver(device):
+    """The experiment driver on the card, parts (a)-(c).  Returns the K1
+    and K2 launches of the driver's runs in this process."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, path = phase_driver_vs_plain(device, tmp)
+        b = phase_driver_rmat(device, tmp)
+        phase_driver_subprocess(path)
+    return {k: a[k] + b[k] for k in a}
+
+
 def k1_ab(other: str) -> int:
     """K1's device times (``k1_times``) of the tree at ``other`` and of this
     one, each in a process of its own, in turns: other, this, this,
@@ -1504,18 +1868,26 @@ def main() -> int:
     phase("phase 7: the sort probes P2, P3 (bitonic) and P4 (radix probe); "
           "bitonic at 2^7-2^23")
     p2, p3, p4, probe_packs = phase_sort_probes(device, rng)
+    torch.cuda.empty_cache()
+    phase("phase 8: the experiment driver (cli.main: card against CPU on a "
+          "planted graph; RMAT-18 fused and unfused; python -m "
+          "linkpred_tpu_torch)")
+    driver = phase_driver(device)
     phase("done")
 
     stats = {
         "fused_tail": dict(
-            launches=lhub["fused_tail"] + ihub["fused_tail"],
+            launches=lhub["fused_tail"] + ihub["fused_tail"]
+            + driver["fused_tail"],
             launches_by_path={"lhub": lhub["fused_tail"],
-                              "ihub": ihub["fused_tail"]}, **k1),
+                              "ihub": ihub["fused_tail"],
+                              "driver": driver["fused_tail"]}, **k1),
         "pack_survivors": dict(
             launches=lhub["pack_survivors"] + ihub["pack_survivors"]
-            + probe_packs,
+            + driver["pack_survivors"] + probe_packs,
             launches_by_path={"lhub": lhub["pack_survivors"],
                               "ihub": ihub["pack_survivors"],
+                              "driver": driver["pack_survivors"],
                               "radix_probe": probe_packs}, **k2),
         "pallas_tail": p1,
         "affine_smoke": p5,

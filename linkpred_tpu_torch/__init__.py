@@ -7,16 +7,20 @@ reference.  It imports torch and numpy, never jax.
 Layout (module paths mirror the reference's):
   graph      — CSR graph (NumPy leaves; ``to(device)`` for tensors)
   convert    — the reference's graph/plan arrays into the port's types
-  io         — ctypes loader of the native C++ plan helpers
+  cli        — the experiment driver (``python -m linkpred_tpu_torch``)
+  io         — the MTX reader and writer, and the ctypes loader of the
+               native C++ helpers (MTX body parser, plan helpers)
   ops        — transforms, batch updates, segmented scans, top-k, and the
                modules of the two CUDA kernels (fused_tail, compact)
   kernels    — the CUDA C++ sources (``csrc/``) and their nvcc builder
   predict    — metrics, host plan, scoring engine, public API
-  bench      — synthetic graphs
-  utils      — device memory budgets, timing
+  bench      — synthetic graphs, the experiment harness, the log → CSV
+               post-processor
+  utils      — device memory budgets, timing, the reference's log grammar
 """
 
 from .graph import CSRGraph, from_edges
+from .io.mtx import read_mtx, write_mtx
 from .predict.api import (PlanCache, PredictOptions, PredictResult,
                           predict_links, predict_links_multi)
 from .predict.metrics import METRICS, get_metric
@@ -24,5 +28,5 @@ from .predict.metrics import METRICS, get_metric
 __all__ = [
     "predict_links", "predict_links_multi", "PredictOptions",
     "PredictResult", "PlanCache", "CSRGraph", "from_edges", "METRICS",
-    "get_metric",
+    "get_metric", "read_mtx", "write_mtx",
 ]

@@ -1,1 +1,1 @@
-"""Synthetic benchmark graphs."""
+"""Synthetic graphs, the experiment harness and the log post-processor."""

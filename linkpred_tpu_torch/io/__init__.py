@@ -1,1 +1,1 @@
-"""Native host helpers."""
+"""The MTX reader and writer, and the loader of the native host helpers."""

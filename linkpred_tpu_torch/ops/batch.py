@@ -1,5 +1,6 @@
 """Batch updates on the host (counterpart of ``linkpred_tpu/ops/batch.py``):
-deletion sampling, tidying and applying.  The device variant waits."""
+deletion and insertion sampling, tidying and applying.  The device variant
+waits."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -8,7 +9,8 @@ import numpy as np
 
 from ..graph import CSRGraph, edge_list, from_edges
 
-__all__ = ["generate_edge_deletions", "tidy_batch", "apply_batch"]
+__all__ = ["generate_edge_deletions", "generate_edge_insertions",
+           "tidy_batch", "apply_batch"]
 
 RETRIES = 5
 
@@ -41,6 +43,24 @@ def generate_edge_deletions(
     vi = np.minimum(vi, deg[picked_u] - 1)
     v = indices[offsets[picked_u] + vi]
     pairs = np.stack([picked_u, v], axis=1)
+    if undirected:
+        pairs = np.concatenate([pairs, pairs[:, ::-1]], axis=0)
+    return pairs
+
+
+def generate_edge_insertions(
+    rng: np.random.Generator, g: CSRGraph, batch_size: int,
+    undirected: bool = True,
+) -> np.ndarray:
+    """Sample ``batch_size`` uniform random vertex pairs as candidate
+    insertions: int64[*, 2], both directions per pick when ``undirected``.
+    Draws nothing from ``rng`` when ``batch_size <= 0`` or the graph is
+    empty, so a sweep without insertions leaves the generator as it was."""
+    if batch_size <= 0 or g.n == 0:
+        return np.empty((0, 2), dtype=np.int64)
+    u = rng.integers(0, g.n, size=batch_size)
+    v = rng.integers(0, g.n, size=batch_size)
+    pairs = np.stack([u, v], axis=1)
     if undirected:
         pairs = np.concatenate([pairs, pairs[:, ::-1]], axis=0)
     return pairs

@@ -16,7 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["METRICS", "MetricSpec", "get_metric", "maxf2_mask"]
+__all__ = ["METRICS", "MetricSpec", "TECHNIQUE_NAMES", "get_metric",
+           "maxf2_mask"]
 
 
 def maxf2_mask(du, dw, maxf2):
@@ -98,6 +99,21 @@ METRICS = {
         MetricSpec("adamic_adar", True),
         MetricSpec("resource_allocation", True),
     ]
+}
+
+# Technique-name stems of the result-log lines: the reference's labels,
+# derived from its function names; the harness appends the backend tag and
+# the hub threshold.
+TECHNIQUE_NAMES = {
+    "common_neighbors": "predictLinksCommonNeighbors",
+    "jaccard_coefficient": "predictLinksJaccardCoefficient",
+    "sorensen_index": "predictLinksSorensenIndex",
+    "salton_cosine_similarity": "predictLinksSaltonCosineSimilarity",
+    "hub_promoted": "predictLinksHubPromoted",
+    "hub_depressed": "predictLinksHubDepressed",
+    "leicht_holme_nerman": "predictLinksLeichtHolmeNermanScore",
+    "adamic_adar": "predictLinksAdamicAdarCoefficient",
+    "resource_allocation": "predictLinksResourceAllocationScore",
 }
 
 

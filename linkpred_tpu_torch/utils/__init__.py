@@ -1,1 +1,2 @@
-"""Numeric helpers, device memory budgets and timing."""
+"""Numeric helpers, device memory budgets, timing, the reference's log
+grammar and the fault handler."""

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "hbm_bytes", "auto_slot_budget",
+__all__ = ["resolve_device", "device_count", "hbm_bytes", "auto_slot_budget",
            "auto_seg_lanes"]
 
 # Budget basis for a CPU device: the reference's 16 GiB default, so a plan
@@ -24,6 +24,13 @@ def resolve_device(device) -> torch.device:
             f"device {device} requested but no CUDA card is available; pass "
             "device='cpu' to run on the CPU (the kernels' plain versions)")
     return device
+
+
+def device_count(device) -> int:
+    """The count of devices of ``device``'s type: the CUDA cards, or 1 for
+    the CPU.  A CUDA device without a card raises."""
+    device = resolve_device(device)
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def hbm_bytes(device) -> int:

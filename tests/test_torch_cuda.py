@@ -1,5 +1,6 @@
 """The port on a CUDA card: each kernel against its plain twin on the same
-card tensors, and ``predict_links_multi`` on the card against the CPU.
+card tensors, and ``predict_links_multi`` and the experiment harness on the
+card against the CPU.
 
 This file imports neither jax nor the reference, because the machine with
 the card has no jax; tests/conftest.py does, so on the card run it with
@@ -571,3 +572,71 @@ def test_pack_kernel_ratio_1_everything_survives(rng, cuda):
         assert torch.equal(a, b)
     assert int(out[2]) == total and torch.equal(out[0], key)
     assert torch.equal(out[1].long(), torch.arange(total, device=cuda))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_harness_cuda_matches_cpu(cuda, monkeypatch, fused):
+    """The experiment harness on the card against the same sweep on the
+    CPU: rows equal except the times; precision and recall through the
+    counts they are made of, equal up to the pairs tied at the k-th score.
+    Device memory after each batch's cache clear does not grow."""
+    from linkpred_tpu_torch.bench import harness
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+
+    g = planted_partition_graph(6, 22, p_in=0.5, p_out=0.01, seed=1)
+    record = {"ties": [], "counts": [], "mem": []}
+    multi, single, common = (harness.predict_links_multi,
+                             harness.predict_links, harness.common_pair_count)
+
+    def ties(res, k):
+        if not len(res) or len(res) < k:
+            return 0
+        return int(np.count_nonzero(res.score <= res.score[-1] * (1 + 1e-5)))
+
+    def rec_multi(y, metrics, **kw):
+        out = multi(y, metrics, **kw)
+        record["ties"] += [ties(out[m], kw["options"].max_edges)
+                           for m in metrics]
+        return out
+
+    def rec_single(y, metric, **kw):
+        out = single(y, metric=metric, **kw)
+        record["ties"].append(ties(out, kw["options"].max_edges))
+        return out
+
+    def rec_common(a, b):
+        c = common(a, b)
+        record["counts"].append((c, a.shape[0], b.shape[0]))
+        return c
+
+    class Cache(harness.PlanCache):
+        def clear(self):
+            super().clear()
+            record["mem"].append(torch.cuda.memory_allocated(cuda))
+
+    monkeypatch.setattr(harness, "predict_links_multi", rec_multi)
+    monkeypatch.setattr(harness, "predict_links", rec_single)
+    monkeypatch.setattr(harness, "common_pair_count", rec_common)
+    monkeypatch.setattr(harness, "PlanCache", Cache)
+    cfg = dict(repeat_batch=1, repeat_method=1, deletions_begin=0.05,
+               deletions_end=0.1, deletions_step=2.0, metrics=tuple(lt.METRICS),
+               degrees=(0, 64), seed=3, cap=1 << 14, fused_metrics=fused)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        start = len(record["counts"])
+        rows = harness.run_experiment(
+            g, harness.ExperimentConfig(device=dev, **cfg), lambda _: None)
+        runs[dev] = (rows, record["counts"][start:], record["ties"][start:])
+    (got, c_got, t_got), (want, c_want, t_want) = runs["cuda"], runs["cpu"]
+    assert len(got) == len(want) == 2 * 2 * len(lt.METRICS)
+    for g_, w, cg, cw, tg, tw in zip(got, want, c_got, c_want, t_got, t_want):
+        for f in ("batch_deletions_fraction", "batch_insertions_fraction",
+                  "technique"):
+            assert g_[f] == w[f]
+        assert g_["num_threads"] == torch.cuda.device_count()
+        assert cg[1:] == cw[1:]
+        assert abs(cg[0] - cw[0]) <= 2 * max(tg, tw), (g_["technique"], cg,
+                                                      cw, tg, tw)
+    assert max(r["recall"] for r in got) > 0.1
+    mem = record["mem"][:2]            # the cuda run's two batches
+    assert len(mem) == 2 and mem[1] <= mem[0], mem

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor the reference package,
-and its kernel builder fails loudly without nvcc."""
+"""The port stands alone: it imports neither jax nor the reference package
+(every module, the scoring entry points, and ``python -m
+linkpred_tpu_torch`` with its log post-processor), and its kernel builder
+fails loudly without nvcc."""
 import os
 import subprocess
 import sys
@@ -43,6 +45,30 @@ assert torch.equal(pallas_bitonic2.make_sort(256)(x, x)[0], want)
 offs, x = radix_probe.dynstore_inputs(rng)
 out = radix_probe.dynstore_run(1, torch.as_tensor(offs), torch.as_tensor(x))
 assert out.shape == (512, 128)
+import contextlib, io, runpy, shutil, tempfile
+from linkpred_tpu_torch.bench import process
+tmp = tempfile.mkdtemp()
+try:
+    lt.write_mtx(g, tmp + "/toy.mtx")
+    sys.argv = ["linkpred_tpu_torch", tmp + "/toy.mtx", "1", "0",
+                "--device", "cpu", "--metrics", "cn", "--degrees", "0",
+                "--repeat-batch", "1", "--repeat-method", "1",
+                "--deletions-begin", "0.1", "--deletions-end", "0.1",
+                "--seed", "1", "--cap", "4096"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            runpy.run_module("linkpred_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+    with open(tmp + "/run.log", "w") as f:
+        f.write(out.getvalue())
+    assert process.main(["csv", tmp + "/run.log", tmp + "/run.csv"]) == 0
+    rows = process.read_log(tmp + "/run.log")["toy"]
+    assert [r["technique"] for r in rows] == [
+        "predictLinksCommonNeighborsCuda0"], rows
+finally:
+    shutil.rmtree(tmp)
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "linkpred_tpu"))]
 assert not bad, bad
