@@ -24,6 +24,16 @@ plain versions), on RMAT-18 written as MTX (all 9 metrics, thresholds 4
 and 64, two deletion fractions, fused and unfused, the logs parsed into
 CSV), and ``python -m linkpred_tpu_torch`` as a subprocess.
 
+Phase 9 drives the bench leg and the rest of the experiment layer: the
+bench row (``bench.run.main()``) at phase 5's scale with phase 5's graph as
+its cache, checked against the roofline model of phase 5's plan and the
+card's peak; ``python -m linkpred_tpu_torch.bench.run`` as a subprocess at
+RMAT-14, making its cache and then reading it; the heuristic model zoo on
+the card against the CPU; ``python -m linkpred_tpu_torch.bench.sweep`` as a
+subprocess (three graphs, ``--resume``, ``--suite reference
+--allow-missing``) and ``run_sweep`` on the card against the CPU; an npz
+round trip of phase 5's graph; ``profile_fn`` around one LHub pass.
+
     python3 chip_smoke.py [scale]
     python3 chip_smoke.py --k1-ab OTHER_TREE
 
@@ -741,18 +751,11 @@ def time_split(device, plan, y, k):
     from linkpred_tpu_torch.ops import fused_tail as ft
     from linkpred_tpu_torch.predict import api, scoring
 
-    names = ("jaccard_coefficient",)
-    stream = plan.device_stream(device)
     kk = api._exact_k(plan, k)
     ts = plan.tile_start
     bounds = [(int(ts[t]), int(ts[t + 1])) for t in range(len(ts) - 1)
               if ts[t] < ts[t + 1]]
-    tile_fn = scoring.tile_scorer(stream, metric_names=names, n=y.n,
-                                  **api._pass_kwargs(plan))
-
-    def one_pass():
-        return scoring.scan_tiles(tile_fn, ts, kk, 1, plan.cap,
-                                  device=device)
+    tile_fn, one_pass = lhub_pass(device, plan, y, k)
 
     def tiles():
         return [tile_fn(s, e) for s, e in bounds]
@@ -783,7 +786,28 @@ def time_split(device, plan, y, k):
     return split, device_ms_by_kernel(prof)
 
 
+def lhub_pass(device, plan, y, k):
+    """The Jaccard tile scorer of the packed ``plan`` and one scoring pass
+    over its tiles, as ``predict_links`` runs it (the top-``k`` selection
+    included)."""
+    from linkpred_tpu_torch.predict import api, scoring
+
+    tile_fn = scoring.tile_scorer(plan.device_stream(device),
+                                  metric_names=("jaccard_coefficient",),
+                                  n=y.n, **api._pass_kwargs(plan))
+
+    def one_pass():
+        return scoring.scan_tiles(tile_fn, plan.tile_start,
+                                  api._exact_k(plan, k), 1, plan.cap,
+                                  device=device)
+
+    return tile_fn, one_pass
+
+
 def phase_main_path(device, scale: int = 19):
+    """The LHub main path at RMAT-``scale``.  Returns the K1 and K2
+    launches of its run, and (the graph, its tidied deletions, the plan, k)
+    for phase 9."""
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.ops import compact
     from linkpred_tpu_torch.ops import fused_tail as ft
@@ -791,7 +815,7 @@ def phase_main_path(device, scale: int = 19):
     from linkpred_tpu_torch.predict.plan import build_plan
 
     t0 = time.perf_counter()
-    y, removed, k = bench_graph(scale)
+    y, removed, k, deletions = bench_graph(scale)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     plan = build_plan(y, 64, device=device)
@@ -841,7 +865,7 @@ def phase_main_path(device, scale: int = 19):
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms:8.3f} ms  {name[:90]}")
     print_k1_kernels(by_kernel)
-    return launches
+    return launches, (y, deletions, plan, k)
 
 
 # --------------------------------------------------- phase 6: IHub path
@@ -856,7 +880,7 @@ def print_k1_kernels(by_kernel) -> None:
 def bench_graph(scale: int):
     """R-MAT at the bench protocol: edge factor 16, seed 42, 0.1|E|
     removed.  Returns (the graph with the edges removed, the removed
-    undirected edges as a set of (u < v), k)."""
+    undirected edges as a set of (u < v), k, the tidied deletions)."""
     from linkpred_tpu_torch.bench.synth import rmat_graph
     from linkpred_tpu_torch.ops.batch import (apply_batch,
                                               generate_edge_deletions,
@@ -870,7 +894,7 @@ def bench_graph(scale: int):
                                        g)
     y = apply_batch(g, deletions, insertions)
     removed = {(int(a), int(b)) for a, b in deletions if a < b}
-    return y, removed, max(deletions.shape[0] // 2, 1)
+    return y, removed, max(deletions.shape[0] // 2, 1), deletions
 
 
 def recall_of(res, removed) -> float:
@@ -1071,7 +1095,7 @@ def phase_ihub(device, scale: int = 18):
     from linkpred_tpu_torch.predict.plan import build_plan
 
     t0 = time.perf_counter()
-    y, removed, k = bench_graph(scale)
+    y, removed, k, _ = bench_graph(scale)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     plan = build_plan(y, 0, device=device)
@@ -1754,24 +1778,31 @@ def phase_driver_rmat(device, tmp, scale: int = 18):
     return launches
 
 
+def run_module(argv, env=None, timeout: int = 600):
+    """``python -m argv...`` from the repository's root as a subprocess;
+    it must exit 0.  Returns (its standard output, wall seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *argv], cwd=here, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m {' '.join(argv)}: rc "
+          f"{r.returncode}: {r.stderr[-3000:]}")
+    return r.stdout, wall
+
+
 def phase_driver_subprocess(path):
     """Part (c): the real entry point, ``python -m linkpred_tpu_torch``,
     as a subprocess on the card; its log must parse."""
     from linkpred_tpu_torch.bench import process
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    argv = [sys.executable, "-m", "linkpred_tpu_torch", path, "1", "0",
-            "--metrics", "cn,aa", "--degrees", "0,32", "--deletions-begin",
-            "0.05", "--deletions-end", "0.05", "--seed", "5", *DRIVER_SWEEP]
-    t0 = time.perf_counter()
-    r = subprocess.run(argv, cwd=here, capture_output=True, text=True,
-                       timeout=600)
-    wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"python -m linkpred_tpu_torch: rc "
-          f"{r.returncode}: {r.stderr[-3000:]}")
+    out, wall = run_module([
+        "linkpred_tpu_torch", path, "1", "0", "--metrics", "cn,aa",
+        "--degrees", "0,32", "--deletions-begin", "0.05", "--deletions-end",
+        "0.05", "--seed", "5", *DRIVER_SWEEP])
     log_path = os.path.splitext(path)[0] + "-subprocess.log"
     with open(log_path, "w") as f:
-        f.write(r.stdout)
+        f.write(out)
     rows = process.read_log(log_path).get("planted", [])
     check(len(rows) == 4 and all(r["technique"].endswith(("CudaFused0",
                                                           "CudaFused32"))
@@ -1791,6 +1822,343 @@ def phase_driver(device):
         b = phase_driver_rmat(device, tmp)
         phase_driver_subprocess(path)
     return {k: a[k] + b[k] for k in a}
+
+
+# ------------------------------ phase 9: the bench leg, the experiment layer
+
+# The bench row's keys, in bench.py's order, on a card in the peak table.
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "engine", "samples",
+              "rate_min", "rate_max", "hbm_model_bytes",
+              "achieved_gbps_min_model", "hbm_peak_gbps", "frac_of_peak"]
+# Part (d)'s sweep: two synthetic graphs beside the planted MTX, three
+# metrics, IHub and LHub at 64, one fraction, one timed pass.
+SWEEP_ARGS = ["--synthetic", "ppart:20:100,rmat:14:16", "--metrics",
+              "cn,jaccard,aa", "--degrees", "0,64", "--deletions-begin",
+              "0.1", "--deletions-end", "0.1", "--repeat-batch", "1",
+              "--repeat-method", "1", "--seed", "7"]
+SWEEP_GRAPHS = ["planted", "ppart_c20_s100", "rmat_s14_e16"]
+
+
+def bench_env(**knobs):
+    """This process's environment without its ``BENCH_*`` knobs, plus
+    ``knobs``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(knobs)
+    return env
+
+
+def bench_row(out: str, where: str) -> dict:
+    """The bench row: the last line of ``out``, with bench.py's keys."""
+    row = json.loads(out.strip().splitlines()[-1])
+    check(list(row) == BENCH_KEYS, f"{where}: keys {list(row)}")
+    check(row["engine"] == "key64", f"{where}: engine {row['engine']}")
+    check(0 < row["rate_min"] <= row["value"] <= row["rate_max"],
+          f"{where}: median outside its samples' spread")
+    return row
+
+
+def phase_bench_row(device, tmp, main_path, scale):
+    """Part (a): ``bench.run.main()`` in this process at phase 5's scale,
+    its graph cache seeded with phase 5's graph and deletions (the same
+    protocol), so nothing is made twice; then ``python -m
+    linkpred_tpu_torch.bench.run`` on that cache in a process of its own.
+    Returns the K1 and K2 launches of the in-process run."""
+    import contextlib
+    import io
+
+    from linkpred_tpu_torch.bench import run
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.utils import roofline
+
+    y, deletions, plan, _ = main_path
+    cache = os.path.join(tmp, "bench_cache")
+    run.write_cache(cache, scale, y, deletions)
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("BENCH_")}
+    os.environ.update(BENCH_SCALE=str(scale), BENCH_CACHE_DIR=cache)
+    out = io.StringIO()
+    ft.LAUNCHES = compact.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run.main()
+        wall = time.perf_counter() - t0
+    finally:
+        for k in ("BENCH_SCALE", "BENCH_CACHE_DIR"):
+            os.environ.pop(k)
+        os.environ.update(saved)
+    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    check(rc == 0, f"bench (a): main() returned {rc}")
+    row = bench_row(out.getvalue(), "bench (a)")
+    check(row["metric"] == f"lhub_jaccard_coefficient_deg64_rmat{scale}_rate",
+          f"bench (a): metric {row['metric']}")
+    check(plan.packed, "bench (a): phase 5's plan is not packed")
+    mb = roofline.packed_pass_min_bytes(int(plan.tile_slot_start[-1]),
+                                        deg16=plan.deg16)
+    check(row["hbm_model_bytes"] == mb,
+          f"bench (a): model bytes {row['hbm_model_bytes']} != {mb}")
+    peak = roofline.device_peak_gbps(device)
+    check(peak is not None and row["hbm_peak_gbps"] == peak,
+          f"bench (a): peak {row['hbm_peak_gbps']} != the table's {peak}")
+    check(0 < row["frac_of_peak"] <= 1.05,
+          f"bench (a): frac_of_peak {row['frac_of_peak']}")
+    check(all(v > 0 for v in launches.values()),
+          f"bench (a): a kernel never launched: {launches}")
+    print(f"  bench.run.main() at RMAT-{scale} in this process: {wall:.1f} s "
+          f"(cache read, plan, {row['samples']} samples); launches "
+          f"{launches}; the row and the card:")
+    print("  " + json.dumps(row))
+    print("  " + card_line())
+    # the same row from a process of its own on the same cache: what a
+    # user's `python -m linkpred_tpu_torch.bench.run` measures
+    env = bench_env(BENCH_SCALE=str(scale), BENCH_CACHE_DIR=cache)
+    stamp = os.stat(run.cache_path(cache, scale)).st_mtime_ns
+    out, wall = run_module(["linkpred_tpu_torch.bench.run"], env)
+    fresh = bench_row(out, "bench (a) subprocess")
+    check(os.stat(run.cache_path(cache, scale)).st_mtime_ns == stamp
+          and fresh["metric"] == row["metric"]
+          and fresh["hbm_model_bytes"] == mb,
+          f"bench (a) subprocess: row {fresh}")
+    print(f"  python -m linkpred_tpu_torch.bench.run at RMAT-{scale} on the "
+          f"same cache: rc 0 in {wall:.1f} s; the row:")
+    print("  " + json.dumps(fresh))
+    return launches
+
+
+def phase_bench_subprocess(tmp):
+    """Part (b): ``python -m linkpred_tpu_torch.bench.run`` as a
+    subprocess at RMAT-14 on an empty cache dir (the synthesis and the
+    cache write run), then again on the same dir (the cache is read: the
+    file is not written again)."""
+    from linkpred_tpu_torch.bench import run
+
+    cache = os.path.join(tmp, "bench_cache14")
+    env = bench_env(BENCH_SCALE="14", BENCH_CACHE_DIR=cache)
+    argv = ["linkpred_tpu_torch.bench.run"]
+    out, wall = run_module(argv, env)
+    first = bench_row(out, "bench (b) first run")
+    path = run.cache_path(cache, 14)
+    check(os.path.exists(path), "bench (b): the first run wrote no cache")
+    stamp = os.stat(path).st_mtime_ns
+    out, wall2 = run_module(argv, env)
+    second = bench_row(out, "bench (b) second run")
+    check(os.stat(path).st_mtime_ns == stamp,
+          "bench (b): the second run made the graph again")
+    check(first["metric"] == second["metric"]
+          == "lhub_jaccard_coefficient_deg64_rmat14_rate"
+          and first["hbm_model_bytes"] == second["hbm_model_bytes"],
+          f"bench (b): rows {first} / {second}")
+    print(f"  python -m linkpred_tpu_torch.bench.run, BENCH_SCALE=14: rc 0 "
+          f"in {wall:.1f} s (made and cached), {wall2:.1f} s (cache read); "
+          f"{first['value']:.6e} / {second['value']:.6e} edges/s, "
+          f"{first['hbm_model_bytes']} model bytes in both")
+
+
+def phase_models(device, tmp):
+    """Part (c): ``all_models(degrees=(0, 4, 64))`` on the card against
+    the same zoo on the CPU, on the planted graph of phase 8 (a) written as
+    MTX and read back.  Returns the graph's path."""
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+    from linkpred_tpu_torch.models import all_models
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.ops.transform import remove_self_loops
+
+    g = planted_partition_graph(20, 100, p_in=0.3, p_out=0.0005, seed=3)
+    path = os.path.join(tmp, "planted.mtx")
+    lt.write_mtx(g, path)
+    y = remove_self_loops(lt.read_mtx(path))
+    k = int(0.1 * y.size / 2)
+    card = all_models(degrees=(0, 4, 64), device=device.type)
+    cpu = all_models(degrees=(0, 4, 64), device="cpu")
+    ft.LAUNCHES = compact.LAUNCHES = 0
+    rows, t_card, t_cpu = [], 0.0, 0.0
+    for p, q in zip(card, cpu):
+        check(p.name == q.name and p.name.endswith(f"Cuda{p.min_degree1}"),
+              f"models (c): names {p.name}, {q.name}")
+        t0 = time.perf_counter()
+        a = p.predict(y, max_edges=k)
+        t1 = time.perf_counter()
+        b = q.predict(y, max_edges=k)
+        t_card += t1 - t0
+        t_cpu += time.perf_counter() - t1
+        same_result(a, b, lt.METRICS[p.metric], f"models (c) {p.name}")
+        rows.append(len(a))
+    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    check(len(card) == 27 and {p.min_degree1 for p in card} == {0, 4, 64},
+          f"models (c): {len(card)} predictors")
+    check(all(v > 0 for v in launches.values()),
+          f"models (c): a kernel never launched: {launches}")
+    print(f"  all_models(degrees=(0, 4, 64)): {len(card)} predictors on "
+          f"{device.type} == on the CPU (k = {k}; rows by threshold 0/4/64: "
+          f"{rows[:3]}); card {t_card:.1f} s, CPU {t_cpu:.1f} s; launches "
+          f"{launches}")
+    return path
+
+
+def phase_sweep(device, tmp, planted):
+    """Part (d): ``python -m linkpred_tpu_torch.bench.sweep`` on the card
+    as a subprocess (the planted MTX, ``ppart:20:100`` and RMAT-14), again
+    with ``--resume``, and ``--suite reference --allow-missing`` on a data
+    dir holding one small graph as coAuthorsDBLP; then ``run_sweep`` in
+    this process on the card against the CPU."""
+    import contextlib
+    import io
+
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.bench import harness, process, sweep
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+
+    out_dir = os.path.join(tmp, "sweep")
+    argv = ["linkpred_tpu_torch.bench.sweep", "--graphs", planted,
+            *SWEEP_ARGS, "--out-dir", out_dir]
+    _, wall = run_module(argv)
+    log_path = os.path.join(out_dir, "sweep.log")
+    data = process.read_log(log_path)
+    check(list(data) == SWEEP_GRAPHS, f"sweep (d): graphs {list(data)}")
+    with open(os.path.join(out_dir, "sweep.csv")) as f:
+        check(f.read().count("\n") - 1 == 18, "sweep (d): sweep.csv rows")
+    for name, rows in data.items():
+        with open(os.path.join(out_dir, f"{name}.csv")) as f:
+            n_csv = f.read().count("\n") - 1
+        check(len(rows) == n_csv == 6, f"sweep (d) {name}: {len(rows)} "
+              f"rows, {n_csv} in its CSV, not 6 (3 metrics x 2 thresholds)")
+        check(all(r["technique"].endswith(("CudaFused0", "CudaFused64"))
+                  and 0 <= r["precision"] <= 1 and 0 <= r["recall"] <= 1
+                  for r in rows), f"sweep (d) {name}: rows {rows}")
+        check(max(r["recall"] for r in rows) > 0,
+              f"sweep (d) {name}: every recall is zero")
+    with open(log_path) as f:
+        n_lines = len(f.read().splitlines())
+    out, wall2 = run_module([*argv, "--resume"])
+    check(all(f"skipping {name}" in out for name in SWEEP_GRAPHS),
+          "sweep (d): --resume did not skip every graph")
+    with open(log_path) as f:
+        check(len(f.read().splitlines()) == n_lines,
+              "sweep (d): --resume added lines")
+
+    data_dir = os.path.join(tmp, "suite_data")
+    os.makedirs(data_dir)
+    lt.write_mtx(planted_partition_graph(4, 25, p_in=0.4, p_out=0.01,
+                                         seed=5),
+                 os.path.join(data_dir, "coAuthorsDBLP.mtx"))
+    suite_out = os.path.join(tmp, "suite_out")
+    _, wall3 = run_module([
+        "linkpred_tpu_torch.bench.sweep", "--suite", "reference",
+        "--data-dir", data_dir, "--allow-missing", "--out-dir", suite_out,
+        "--metrics", "jaccard", "--degrees", "0,8", "--repeat-batch", "1",
+        "--repeat-method", "1", "--deletions-begin", "0.1",
+        "--deletions-end", "0.1", "--seed", "7"])
+    with open(os.path.join(suite_out, "f1_report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(suite_out, "sweep.log")) as f:
+        suite_log = f.read()
+    check(set(report) == {"ihub@0.1", "lhub@0.1"}
+          and "coAuthorsDBLP" in suite_log
+          and "(symmetrize)" not in suite_log,
+          f"sweep (d) suite: report {report}")
+    print(f"  python -m linkpred_tpu_torch.bench.sweep on {SWEEP_GRAPHS}: rc "
+          f"0 in {wall:.1f} s, 18 rows (6 a graph, one CSV each); --resume "
+          f"skipped all three in {wall2:.1f} s; --suite reference "
+          f"--allow-missing on coAuthorsDBLP: f1_report.json "
+          f"{json.dumps(report)} in {wall3:.1f} s")
+
+    runs = {}
+    for side, dev in (("card", device.type), ("cpu", "cpu")):
+        cfg = harness.ExperimentConfig(
+            repeat_batch=1, repeat_method=1, deletions_begin=0.1,
+            deletions_end=0.1, metrics=("cn", "jaccard", "aa"),
+            degrees=(0, 64), seed=7, device=dev)
+        ft.LAUNCHES = compact.LAUNCHES = 0
+        with DriverProbe(dev) as probe, \
+                contextlib.redirect_stdout(io.StringIO()):
+            path = sweep.run_sweep([planted], cfg,
+                                   os.path.join(tmp, f"run_sweep_{side}"))
+        launches = {"fused_tail": ft.LAUNCHES,
+                    "pack_survivors": compact.LAUNCHES}
+        runs[side] = (process.read_log(path)["planted"], probe)
+        if side == "card":
+            check(all(v > 0 for v in launches.values()),
+                  f"sweep (d) run_sweep: a kernel never launched: {launches}")
+            card_launches = launches
+    differ = rows_match("sweep (d) run_sweep card against CPU",
+                        *runs["card"], *runs["cpu"])
+    print(f"  run_sweep on the planted graph: {device.type} == cpu in "
+          f"precision and recall in {len(runs['cpu'][0])} rows ({differ} "
+          f"apart within the k-th score's ties); launches {card_launches}")
+
+
+def phase_npz_profile(device, tmp, main_path):
+    """Part (e): phase 5's graph through ``save_graph``/``load_graph``,
+    field for field; ``profile_fn`` around one pass of the LHub main
+    path, K1 among its kernel rows."""
+    import torch
+    from linkpred_tpu_torch.io import npz
+    from linkpred_tpu_torch.utils import profiling
+
+    y, _, plan, k = main_path
+    path = os.path.join(tmp, "rmat.npz")
+    t0 = time.perf_counter()
+    npz.save_graph(y, path)
+    t1 = time.perf_counter()
+    back = npz.load_graph(path)
+    t2 = time.perf_counter()
+    for f in ("offsets", "indices", "degrees"):
+        a, b = getattr(back, f), getattr(y, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"npz (e): {f} differs after the round trip")
+    check((back.n, back.m, back.weights, back.values)
+          == (y.n, y.m, None, None), "npz (e): n, m, weights or values")
+    print(f"  npz: RMAT n={y.n} |E|={y.m} saved in {t1 - t0:.3f} s "
+          f"({os.path.getsize(path)} bytes), loaded in {t2 - t1:.3f} s, "
+          "equal field for field")
+
+    _, one_pass = lhub_pass(device, plan, y, k)
+    one_pass()
+    torch.cuda.synchronize()
+    # a profiler session that records no device event (seen on the card)
+    # makes profile_fn raise; a fresh session is tried, as device_profile
+    # does, and the third such session fails the run
+    for attempt in range(3):
+        try:
+            _, summary = profiling.profile_fn(one_pass, top=10_000)
+            break
+        except RuntimeError as e:
+            check(attempt < 2 and "no device event" in str(e), str(e))
+            print(f"  profile_fn: {e}; a new session")
+    print("  profile_fn around one LHub pass, top 10 rows (ms):")
+    for name, ms in summary[:10]:
+        print(f"    {ms:9.3f}  {name[:100]}")
+    k1 = [(name, ms) for name, ms in summary if "tail_onepass" in name]
+    check(k1, "profile_fn: no tail_onepass (K1) row among the kernels")
+    for name, ms in k1:
+        print(f"    K1: {ms:9.3f} ms  {name[:100]}")
+
+
+def phase_bench_layer(device, main_path, scale):
+    """The bench leg and the experiment layer on the card, parts (a)-(e).
+    Returns the K1 and K2 launches of the bench row's run, part (a)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launches = phase_bench_row(device, tmp, main_path, scale)
+        t1 = time.perf_counter()
+        phase_bench_subprocess(tmp)
+        t2 = time.perf_counter()
+        planted = phase_models(device, tmp)
+        t3 = time.perf_counter()
+        phase_sweep(device, tmp, planted)
+        t4 = time.perf_counter()
+        phase_npz_profile(device, tmp, main_path)
+        t5 = time.perf_counter()
+    print(f"  phase 9 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+          f"(c) {t3 - t2:.1f} s, (d) {t4 - t3:.1f} s, (e) {t5 - t4:.1f} s")
+    return launches
 
 
 def k1_ab(other: str) -> int:
@@ -1860,7 +2228,7 @@ def main() -> int:
     phase_end_to_end(device)
     scale = int(sys.argv[1]) if len(sys.argv) > 1 else 19
     phase(f"phase 5: the LHub main path, RMAT-{scale}")
-    lhub = phase_main_path(device, scale)
+    lhub, main_path = phase_main_path(device, scale)
     torch.cuda.empty_cache()
     phase("phase 6: the IHub path, RMAT-18 on the edge stream")
     ihub = phase_ihub(device, 18)
@@ -1873,21 +2241,30 @@ def main() -> int:
           "planted graph; RMAT-18 fused and unfused; python -m "
           "linkpred_tpu_torch)")
     driver = phase_driver(device)
+    torch.cuda.empty_cache()
+    phase("phase 9: the bench leg and the experiment layer (bench.run in "
+          "process and as a subprocess; the models and the sweep, card "
+          "against CPU; npz; profile_fn)")
+    bench = phase_bench_layer(device, main_path, scale)
+    del main_path
     phase("done")
 
     stats = {
         "fused_tail": dict(
             launches=lhub["fused_tail"] + ihub["fused_tail"]
-            + driver["fused_tail"],
+            + driver["fused_tail"] + bench["fused_tail"],
             launches_by_path={"lhub": lhub["fused_tail"],
                               "ihub": ihub["fused_tail"],
-                              "driver": driver["fused_tail"]}, **k1),
+                              "driver": driver["fused_tail"],
+                              "bench": bench["fused_tail"]}, **k1),
         "pack_survivors": dict(
             launches=lhub["pack_survivors"] + ihub["pack_survivors"]
-            + driver["pack_survivors"] + probe_packs,
+            + driver["pack_survivors"] + bench["pack_survivors"]
+            + probe_packs,
             launches_by_path={"lhub": lhub["pack_survivors"],
                               "ihub": ihub["pack_survivors"],
                               "driver": driver["pack_survivors"],
+                              "bench": bench["pack_survivors"],
                               "radix_probe": probe_packs}, **k2),
         "pallas_tail": p1,
         "affine_smoke": p5,

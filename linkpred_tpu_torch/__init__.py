@@ -8,15 +8,20 @@ Layout (module paths mirror the reference's):
   graph      — CSR graph (NumPy leaves; ``to(device)`` for tensors)
   convert    — the reference's graph/plan arrays into the port's types
   cli        — the experiment driver (``python -m linkpred_tpu_torch``)
-  io         — the MTX reader and writer, and the ctypes loader of the
-               native C++ helpers (MTX body parser, plan helpers)
+  io         — the MTX reader and writer, npz graph files, and the ctypes
+               loader of the native C++ helpers (MTX body parser, plan
+               helpers)
   ops        — transforms, batch updates, segmented scans, top-k, and the
                modules of the two CUDA kernels (fused_tail, compact)
   kernels    — the CUDA C++ sources (``csrc/``) and their nvcc builder
   predict    — metrics, host plan, scoring engine, public API
+  models     — the heuristic model zoo (IHub/LHub predictors)
   bench      — synthetic graphs, the experiment harness, the log → CSV
-               post-processor
-  utils      — device memory budgets, timing, the reference's log grammar
+               post-processor, the bench row (``python -m
+               linkpred_tpu_torch.bench.run``), the sweep runner and the
+               reference suite's manifest
+  utils      — device memory budgets, timing, the reference's log grammar,
+               the memory roofline, the profiler helper
 """
 
 from .graph import CSRGraph, from_edges

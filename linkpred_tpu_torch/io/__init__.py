@@ -1,1 +1,2 @@
-"""The MTX reader and writer, and the loader of the native host helpers."""
+"""The MTX reader and writer, npz graph files, and the loader of the native
+host helpers."""

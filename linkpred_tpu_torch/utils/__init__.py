@@ -1,2 +1,2 @@
 """Numeric helpers, device memory budgets, timing, the reference's log
-grammar and the fault handler."""
+grammar, the fault handler, the memory roofline and the profiler helper."""

@@ -640,3 +640,60 @@ def test_harness_cuda_matches_cpu(cuda, monkeypatch, fused):
     assert max(r["recall"] for r in got) > 0.1
     mem = record["mem"][:2]            # the cuda run's two batches
     assert len(mem) == 2 and mem[1] <= mem[0], mem
+
+
+def test_bench_row_on_the_card(cuda, monkeypatch, capsys, tmp_path):
+    """``bench.run.main()`` on the card at RMAT-12: bench.py's keys, the
+    model bytes of the plan, K1 launched, the median inside its spread,
+    the card's peak and a fraction of it in (0, 1.05]."""
+    import json
+
+    from linkpred_tpu_torch.bench import run
+    from linkpred_tpu_torch.utils import roofline
+
+    for k, v in dict(BENCH_SCALE="12", BENCH_SAMPLES="3", BENCH_REPEAT="2",
+                     BENCH_CACHE_DIR=str(tmp_path)).items():
+        monkeypatch.setenv(k, v)
+    for k in ("BENCH_DEVICE", "BENCH_KEY64", "BENCH_CAP", "BENCH_DEG",
+              "BENCH_METRIC"):
+        monkeypatch.delenv(k, raising=False)
+    before = ft.LAUNCHES
+    assert run.main() == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ft.LAUNCHES > before
+    peak = roofline.device_peak_gbps(cuda)
+    keys = {"metric", "value", "unit", "vs_baseline", "engine", "samples",
+            "rate_min", "rate_max", "hbm_model_bytes",
+            "achieved_gbps_min_model"}
+    assert set(row) == keys | ({"hbm_peak_gbps", "frac_of_peak"} if peak
+                               else set())
+    assert row["metric"] == "lhub_jaccard_coefficient_deg64_rmat12_rate"
+    assert row["engine"] == "key64" and row["samples"] == 3
+    assert 0 < row["rate_min"] <= row["value"] <= row["rate_max"]
+    y, _ = run.bench_graph(12, str(tmp_path))
+    plan = build_plan(y, 64, device=cuda)
+    assert row["hbm_model_bytes"] == roofline.packed_pass_min_bytes(
+        int(plan.tile_slot_start[-1]), deg16=plan.deg16)
+    if peak:
+        assert row["hbm_peak_gbps"] == peak
+        assert 0 < row["frac_of_peak"] <= 1.05
+
+
+def test_all_models_cuda_matches_cpu(cuda):
+    """The model zoo on the card against the same zoo on the CPU, on a
+    132-vertex planted graph (degrees 12-24, so threshold 16 keeps some
+    intermediates): results equal up to ties at the k-th score, names
+    tagged ``Cuda``."""
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+    from linkpred_tpu_torch.models import all_models
+
+    g = planted_partition_graph(6, 22, p_in=0.5, p_out=0.01, seed=1)
+    got = all_models(degrees=(0, 16, 64), device="cuda")
+    want = all_models(degrees=(0, 16, 64), device="cpu")
+    before = ft.LAUNCHES
+    for p, q in zip(got, want):
+        assert p.name == q.name and p.name.endswith(f"Cuda{p.min_degree1}")
+        p.cap = q.cap = 1 << 12
+        _same_results({p.metric: p.predict(g, max_edges=80)},
+                      {q.metric: q.predict(g, max_edges=80)})
+    assert ft.LAUNCHES > before

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the reference package
-(every module, the scoring entry points, and ``python -m
-linkpred_tpu_torch`` with its log post-processor), and its kernel builder
+(every module, the scoring entry points, ``python -m
+linkpred_tpu_torch`` with its log post-processor, the bench row, the sweep,
+the models, npz files and the profiler helper), and its kernel builder
 fails loudly without nvcc."""
 import os
 import subprocess
@@ -67,6 +68,39 @@ try:
     rows = process.read_log(tmp + "/run.log")["toy"]
     assert [r["technique"] for r in rows] == [
         "predictLinksCommonNeighborsCuda0"], rows
+finally:
+    shutil.rmtree(tmp)
+import json, os
+from linkpred_tpu_torch.bench import run, suite, sweep
+from linkpred_tpu_torch.io import npz
+from linkpred_tpu_torch.models import IHub, LHub, all_models
+from linkpred_tpu_torch.utils import profiling, roofline
+tmp = tempfile.mkdtemp()
+try:
+    os.environ.update(BENCH_DEVICE="cpu", BENCH_SCALE="8", BENCH_SAMPLES="1",
+                      BENCH_REPEAT="1", BENCH_CACHE_DIR=tmp + "/cache")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert run.main() == 0
+    row = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert row["metric"] == "lhub_jaccard_coefficient_deg64_rmat8_rate", row
+    assert row["hbm_model_bytes"] > 0 and "frac_of_peak" not in row, row
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert sweep.main(["--synthetic", "ppart:3:20", "--out-dir",
+                           tmp + "/sweep", "--device", "cpu", "--metrics",
+                           "cn", "--degrees", "0", "--repeat-batch", "1",
+                           "--repeat-method", "1", "--deletions-begin", "0.1",
+                           "--deletions-end", "0.1", "--cap", "4096"]) == 0
+    assert os.path.exists(tmp + "/sweep/ppart_c3_s20.csv")
+    assert len(suite.REFERENCE_SUITE) == 17
+    npz.save_graph(g, tmp + "/g.npz")
+    assert np.array_equal(npz.load_graph(tmp + "/g.npz").indices, g.indices)
+    models = all_models(degrees=(0,), device="cpu")
+    assert [len(m.predict(g, max_edges=5)) for m in models[:2]] == [5, 5]
+    assert IHub(device="cpu").name.endswith("Cuda0")
+    assert LHub(device="cpu").name.endswith("Cuda64")
+    _, table = profiling.profile_fn(torch.sort, torch.arange(9.0))
+    assert table and roofline.device_peak_gbps("cpu") is None
 finally:
     shutil.rmtree(tmp)
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
