@@ -9,7 +9,10 @@ the bench protocol:
   packed slot stream;
 * IHub (phase 6): ``predict_links`` Jaccard at ``min_degree1=0`` on
   RMAT-18 with the card's own budgets: the edge stream (K1's killer branch,
-  selection by segment) plus the packed hub sub-plan.
+  selection by segment) plus the packed hub sub-plan.  Over a window of 32
+  edge tiles the tile's slot map (a binary search of the tile's rows) is
+  held lane for lane against the formula it replaced (a scatter-max of row
+  starts and a cummax over the window), and both are timed.
 
 Phase 7 drives the JAX package's sort-feasibility probes as ported: P2 and
 P3 (the bitonic network, ``bitonic.cu``) bit for bit against their plain
@@ -33,6 +36,13 @@ the card against the CPU; ``python -m linkpred_tpu_torch.bench.sweep`` as a
 subprocess (three graphs, ``--resume``, ``--suite reference
 --allow-missing``) and ``run_sweep`` on the card against the CPU; an npz
 round trip of phase 5's graph; ``profile_fn`` around one LHub pass.
+
+Phase 10 drives the host layer and the device helpers on the card against
+the port's own CPU path: ``bfs_levels`` on phase 5's graph, modularity and
+``communities_disconnected`` on phase 8's planted graph, the top-k merge
+helpers over 2^21 candidates at phase 5's k, the device deletion sampler at
+0.1|E| of phase 5's graph, ``xorshift32_step`` and ``scatter_or`` over 2^24
+lanes.
 
     python3 chip_smoke.py [scale]
     python3 chip_smoke.py --k1-ab OTHER_TREE
@@ -1018,15 +1028,57 @@ def ihub_pass_split(device, plan, y, kk, indices, degrees):
     return out
 
 
+def cummax_slot_map(fe_work, t_start: int, t_end: int, cap: int):
+    """The edge tile's slot -> row map as the port first carried it from
+    the reference (``.at[pos].max(iota, mode="drop")`` + ``cummax``), the
+    yardstick of ``scoring._slot_map``: over the whole window, each row
+    with work writes its id at its first slot, every other row (the
+    window's rows past the tile's ~4,500 too) scatters into one drop slot,
+    and a running max over the cap lanes fills the map."""
+    import torch
+
+    iota = torch.arange(cap, dtype=torch.int32, device=fe_work.device)
+    ework = torch.where(iota < (t_end - t_start),
+                        fe_work[t_start: t_start + cap], 0)
+    incl = torch.cumsum(ework, 0, dtype=torch.int32)
+    pos = torch.where(ework > 0, incl - ework, cap).to(torch.int64)
+    starts = torch.zeros(cap + 1, dtype=torch.int32, device=fe_work.device)
+    starts.scatter_reduce_(0, pos, iota, reduce="amax")
+    return torch.cummax(starts[:cap], 0).values.to(torch.int64)
+
+
+def slot_map_ab(stream, win, cap):
+    """The slot map of each tile of ``win``: the new one
+    (``scoring._slot_map``) equal to the old formula on every lane, then
+    both timed with CUDA events over the window.  Returns (old, new) ms a
+    tile."""
+    import torch
+    from linkpred_tpu_torch.predict import scoring
+
+    fe_work = stream[0]
+    iota = torch.arange(cap, dtype=torch.int32, device=fe_work.device)
+    for s, e in win:
+        new = scoring._slot_map(fe_work, s, e, iota)[3]
+        check(torch.equal(new, cummax_slot_map(fe_work, s, e, cap)),
+              f"IHub slot map of tile [{s}, {e}) differs from the old "
+              "formula's")
+    old_ms = cuda_ms(lambda: [cummax_slot_map(fe_work, s, e, cap)
+                              for s, e in win], 3)
+    new_ms = cuda_ms(lambda: [scoring._slot_map(fe_work, s, e, iota)
+                              for s, e in win], 3)
+    return old_ms / len(win), new_ms / len(win)
+
+
 def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
     """Per-tile time split of the edge stream over a window of ``n_win``
     tiles from the middle of the plan, each part timed alone with CUDA
-    events: the slot-map rebuild and gathers (``edge_keys``), the int64
-    sort with its payload gathers (``keyed_sort``), K1 with killers; and a
-    profiler table of the window's whole tiles.  K1 is held against its
-    twin on every sorted tile of the window first.  Returns the window's
-    size, the split, the profiler's device ms by kernel, the window's wall
-    ms and the count of killed runs that cross a K1 tile."""
+    events: the slot map and gathers (``edge_keys``), the int64 sort with
+    its payload gathers (``keyed_sort``), K1 with killers; and a profiler
+    table of the window's whole tiles.  K1 is held against its twin on
+    every sorted tile of the window first.  Returns the window's size, the
+    split, the profiler's device ms by kernel, the window's wall ms, the
+    count of killed runs that cross a K1 tile, and the old and new slot
+    map's ms a tile (:func:`slot_map_ab`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1074,6 +1126,7 @@ def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
     }
     split = {k: v / len(win) for k, v in split.items()}
     del keyed, sorted_in
+    slot_ms = slot_map_ab(stream, win, plan.cap)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1081,7 +1134,8 @@ def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
         tiles()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    return len(win), split, device_ms_by_kernel(prof), wall, crossing
+    return (len(win), split, device_ms_by_kernel(prof), wall, crossing,
+            slot_ms)
 
 
 def phase_ihub(device, scale: int = 18):
@@ -1172,10 +1226,14 @@ def phase_ihub(device, scale: int = 18):
               f"{n_seg} selection segment(s)")
         for name, sel_ms in sel.items():
             print(f"    {name}: {sel_ms:.3f} ms")
-    n_win, split, by_kernel, wall, crossing = ihub_tile_split(
+    n_win, split, by_kernel, wall, crossing, slot_ms = ihub_tile_split(
         device, plan, y, indices, degrees)
     print(f"  K1 with killers == twin on all {n_win} tiles of the window; "
           f"{crossing} killed runs cross a K1 tile there")
+    print(f"  slot map old/new ms a tile: {slot_ms[0]:.4f} / "
+          f"{slot_ms[1]:.4f} (the scatter-max + cummax over the window, "
+          f"the binary search of the tile's rows; equal on every lane of "
+          f"all {n_win} tiles)")
     print(f"  edge tile split over {n_win} tiles of cap {plan.cap} (ms per "
           "tile, each part timed alone): " + ", ".join(
               f"{name} {ms:.4f}" for name, ms in split.items()))
@@ -2161,6 +2219,230 @@ def phase_bench_layer(device, main_path, scale):
     return launches
 
 
+# ------------------------------- phase 10: host layer and device helpers
+
+# Phase 10's device helpers at the sizes users run them: the xorshift lanes
+# and the scatter_or ids (with duplicates: ids drawn from 2^20 slots).
+HELPER_LANES = 1 << 24
+SCATTER_SLOTS = 1 << 20
+TOPK_CANDIDATES = 1 << 21
+
+
+def wall_ms(fn):
+    """``fn()`` and its host-clock milliseconds, the device synchronised
+    before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_host_bfs(device, y):
+    """``bfs_levels`` on RMAT from vertex 0 and from a 64-vertex mask, the
+    card against the port's CPU path; the whole call (edge list, upload,
+    level loop) on the host clock, and the level loop alone by CUDA
+    events."""
+    import torch
+    from linkpred_tpu_torch.graph import edge_list
+    from linkpred_tpu_torch.ops import traverse
+
+    rng = np.random.default_rng(10)
+    mask = np.zeros(y.n, bool)
+    mask[rng.choice(y.n, 64, replace=False)] = True
+    esrc, edst = (torch.as_tensor(a, device=device) for a in edge_list(y))
+    for name, start in (("vertex 0", 0), ("a 64-vertex mask", mask)):
+        got, ms = wall_ms(lambda: traverse.bfs_levels(y, start,
+                                                      device=device))
+        want = traverse.bfs_levels(y, start, device="cpu")
+        check(np.array_equal(got, want),
+              f"host layer: bfs_levels from {name}: card != CPU")
+        smask = torch.as_tensor(want == 0, device=device)
+        loop_ms = cuda_ms(lambda: traverse._bfs_device(esrc, edst, smask), 3)
+        print(f"  bfs_levels from {name}: card == CPU, {int(got.max()) + 1} "
+              f"levels, {int((got >= 0).sum())} of {y.n} vertices reached; "
+              f"{ms:.3f} ms a call (host clock), level loop {loop_ms:.3f} ms")
+
+
+def phase_host_communities(device):
+    """``modularity`` and ``communities_disconnected`` on phase 8's
+    planted graph with its true labels, and with one community made of
+    two members of distant blocks (disconnected)."""
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+    from linkpred_tpu_torch.ops import properties
+
+    g = planted_partition_graph(20, 100, p_in=0.3, p_out=0.0005, seed=3)
+    labels = np.arange(g.n) // 100
+    q, q_ms = wall_ms(lambda: properties.modularity_by(g, labels))
+    q1 = properties.modularity(g)
+    check(0.5 < q < 1 and q1 < q,
+          f"host layer: modularity of the planted labels {q}, singletons "
+          f"{q1}")
+    split = labels.copy()
+    split[[0, 550]] = 20
+    for name, x in (("true labels", labels), ("a split community", split)):
+        got, ms = wall_ms(lambda: properties.communities_disconnected(
+            g, x, device=device))
+        want = properties.communities_disconnected(g, x, device="cpu")
+        check(np.array_equal(got, want),
+              f"host layer: communities_disconnected ({name}): card "
+              f"{got} != CPU {want}")
+        check((got.size == 0) == (name == "true labels"),
+              f"host layer: communities_disconnected ({name}): {got}")
+        print(f"  communities_disconnected, {name}: card == CPU "
+              f"{got.tolist()}; {ms:.3f} ms (host clock)")
+    print(f"  planted(20 x 100): modularity of the true labels {q!r} "
+          f"({q_ms:.3f} ms, host NumPy), of singletons {q1!r}")
+
+
+def phase_host_topk(device, k):
+    """``topk_from_candidates`` over 2^21 candidates (tied scores, -inf
+    lanes) at ``k``, and ``topk_merge`` of two such buffers, card against
+    CPU: scores equal, (u, v) equal outside the k-th score's ties."""
+    import torch
+    from linkpred_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(11)
+
+    def candidates():
+        s = (rng.integers(0, 1 << 12, TOPK_CANDIDATES) / 64).astype(
+            np.float32)
+        s[rng.random(TOPK_CANDIDATES) < 0.1] = -np.inf
+        return (s, *(rng.integers(0, 1 << 19, TOPK_CANDIDATES).astype(
+            np.int32) for _ in range(2)))
+
+    def same(got, want, what):
+        gs, ws = got.scores.cpu().numpy(), want.scores.numpy()
+        check(np.array_equal(gs, ws), f"host layer: {what}: scores differ")
+        above = ws > ws[-1]
+        pairs = [set(zip(t.u.cpu().numpy()[above].tolist(),
+                         t.v.cpu().numpy()[above].tolist()))
+                 for t in (got, want)]
+        check(pairs[0] == pairs[1],
+              f"host layer: {what}: pairs above the k-th score differ")
+        return int((ws == ws[-1]).sum())
+
+    bufs, cpu_bufs = [], []
+    for _ in range(2):
+        c = candidates()
+        dev = [torch.as_tensor(a, device=device) for a in c]
+        top, ms = wall_ms(lambda: topk.topk_from_candidates(*dev, k))
+        ev_ms = cuda_ms(lambda: topk.topk_from_candidates(*dev, k), 5)
+        want = topk.topk_from_candidates(*map(torch.as_tensor, c), k)
+        ties = same(top, want, "topk_from_candidates")
+        bufs.append(top)
+        cpu_bufs.append(want)
+    merged = topk.topk_merge(*bufs)
+    m_ms = cuda_ms(lambda: topk.topk_merge(*bufs), 5)
+    m_ties = same(merged, topk.topk_merge(*cpu_bufs), "topk_merge")
+    print(f"  topk_from_candidates over {TOPK_CANDIDATES} candidates at k = "
+          f"{k}: card == CPU ({ties} lanes tie at the k-th score); "
+          f"{ev_ms:.4f} ms (events), {ms:.3f} ms first call (host clock); "
+          f"topk_merge of two: card == CPU ({m_ties} at the k-th score), "
+          f"{m_ms:.4f} ms (events)")
+
+
+def phase_host_deletions(device, y):
+    """``generate_edge_deletions_device`` at 0.1|E| on RMAT: every valid
+    pair an edge, ``valid`` = deg(u) > 0, ids in range, the same seed the
+    same draws; on the card and on the CPU path."""
+    import torch
+    from linkpred_tpu_torch.graph import edge_list
+    from linkpred_tpu_torch.ops import batch
+
+    size = int(0.1 * y.size)
+    src, dst = edge_list(y)
+    keys = src * y.n + dst                     # ascending: CSR order
+    deg = np.asarray(y.degrees)
+    for dev in (device, torch.device("cpu")):
+        out = []
+        for _ in range(2):
+            gen = torch.Generator(device=dev).manual_seed(9)
+            res, ms = wall_ms(lambda: batch.generate_edge_deletions_device(
+                gen, y, size, device=dev))
+            out.append((res, ms))
+        (pairs, valid), ms = out[0]
+        check(all(torch.equal(a, b) for a, b in zip(out[0][0], out[1][0])),
+              f"host layer: deletions on {dev.type}: one seed, two draws")
+        p, ok = pairs.cpu().numpy().astype(np.int64), valid.cpu().numpy()
+        check(p.shape == (size, 2) and (p[:, 0] >= 0).all()
+              and (p[:, 0] < y.n).all(), f"deletions on {dev.type}: range")
+        check(np.array_equal(ok, deg[p[:, 0]] > 0),
+              f"host layer: deletions on {dev.type}: valid != deg(u) > 0")
+        q = p[ok, 0] * y.n + p[ok, 1]
+        at = np.searchsorted(keys, q).clip(max=keys.size - 1)
+        check(np.array_equal(keys[at], q),
+              f"host layer: deletions on {dev.type}: a valid pair is not "
+              "an edge")
+        print(f"  generate_edge_deletions_device on {dev.type}: {size} "
+              f"draws, {int(ok.sum())} valid, each an edge, valid == "
+              f"deg(u) > 0, one seed one output; {out[1][1]:.3f} ms "
+              "(host clock, the CSR upload included)")
+
+
+def phase_host_lanes(device):
+    """``xorshift32_step`` over 2^24 lanes (states across the uint32
+    range) bit for bit against the CPU path and the host engine, and
+    ``scatter_or`` of 2^24 int32 and bool values into 2^20 slots (16
+    writers a slot on average) against the CPU path."""
+    import torch
+    from linkpred_tpu_torch.ops import vector
+    from linkpred_tpu_torch.utils import random as xr
+
+    rng = np.random.default_rng(12)
+    states = rng.integers(1, 1 << 32, HELPER_LANES, dtype=np.int64)
+    dev_states = torch.as_tensor(states, device=device)
+    got = xr.xorshift32_step(dev_states)
+    ms = cuda_ms(lambda: xr.xorshift32_step(dev_states))
+    want = xr.xorshift32_step(torch.as_tensor(states))
+    check(torch.equal(got.cpu(), want),
+          "host layer: xorshift32_step card != CPU")
+    host = [xr.Xorshift32(int(s))() for s in states[:4096]]
+    check(got[:4096].cpu().tolist() == host,
+          "host layer: xorshift32_step != the host engine")
+    print(f"  xorshift32_step over {HELPER_LANES} lanes: card == CPU bit for "
+          f"bit ({int((got >= 1 << 31).sum())} results >= 2^31), == "
+          f"Xorshift32 on 4096 lanes; {ms:.4f} ms (events)")
+
+    ids = rng.integers(0, SCATTER_SLOTS, HELPER_LANES).astype(np.int32)
+    for name, a, x in (
+            ("int32", rng.integers(0, 2, SCATTER_SLOTS).astype(np.int32),
+             rng.integers(-2 ** 31, 2 ** 31, HELPER_LANES).astype(np.int32)),
+            ("bool", np.zeros(SCATTER_SLOTS, bool),
+             rng.random(HELPER_LANES) < 0.05)):
+        args = [torch.as_tensor(v, device=device) for v in (a, ids, x)]
+        got = vector.scatter_or(*args)
+        ms = cuda_ms(lambda: vector.scatter_or(*args), 3)
+        want = vector.scatter_or(*map(torch.as_tensor, (a, ids, x)))
+        check(torch.equal(got.cpu(), want),
+              f"host layer: scatter_or ({name}) card != CPU")
+        print(f"  scatter_or of {HELPER_LANES} {name} values into "
+              f"{SCATTER_SLOTS} slots: card == CPU; {ms:.3f} ms (events)")
+
+
+def phase_host_layer(device, main_path):
+    """The host layer and the device helpers on the card against the
+    port's own CPU path, at RMAT-``scale`` of phase 5 unless named
+    otherwise; each part's time printed."""
+    y, _, _, k = main_path
+    parts = (("(a) bfs_levels", lambda: phase_host_bfs(device, y)),
+             ("(b) modularity and communities",
+              lambda: phase_host_communities(device)),
+             ("(c) top-k helpers", lambda: phase_host_topk(device, k)),
+             ("(d) device deletions", lambda: phase_host_deletions(device,
+                                                                   y)),
+             ("(e) xorshift32 and scatter_or",
+              lambda: phase_host_lanes(device)))
+    times = []
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        fn()
+        times.append(f"{name} {time.perf_counter() - t0:.1f} s")
+    print("  phase 10 parts: " + ", ".join(times))
+
+
 def k1_ab(other: str) -> int:
     """K1's device times (``k1_times``) of the tree at ``other`` and of this
     one, each in a process of its own, in turns: other, this, this,
@@ -2246,6 +2528,11 @@ def main() -> int:
           "process and as a subprocess; the models and the sweep, card "
           "against CPU; npz; profile_fn)")
     bench = phase_bench_layer(device, main_path, scale)
+    torch.cuda.empty_cache()
+    phase("phase 10: host layer and device helpers (BFS, communities, "
+          "top-k merge, device deletions, xorshift32, scatter_or), card "
+          "against CPU")
+    phase_host_layer(device, main_path)
     del main_path
     phase("done")
 

@@ -9,8 +9,9 @@ A plain frozen dataclass with NumPy leaves:
 * ``weights`` — optional ``float32[m_pad]`` edge values
 * ``values``  — optional ``[n]`` per-vertex values
 
-Graph construction is host work and stays NumPy; ``to(device)`` gives a copy
-whose leaves are torch tensors.
+Graph construction is host work and stays NumPy (``from_edges``,
+``from_dense``, the deferred-mutation ``GraphBuilder``); ``to(device)`` gives
+a copy whose leaves are torch tensors.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["CSRGraph", "from_edges", "edge_list", "PAD_ALIGN"]
+__all__ = ["CSRGraph", "GraphBuilder", "from_edges", "from_dense", "to_dense",
+           "edge_list", "PAD_ALIGN"]
 
 # Edge arrays are padded to a multiple of this length.
 PAD_ALIGN = 128
@@ -177,3 +179,85 @@ def edge_list(g: CSRGraph, with_weights: bool = False):
              else np.asarray(g.weights[: g.m], dtype=np.float32))
         return src, dst, w
     return src, dst
+
+
+def from_dense(a: np.ndarray) -> CSRGraph:
+    """Build from a dense boolean adjacency matrix (small graphs)."""
+    src, dst = np.nonzero(np.asarray(a))
+    return from_edges(src, dst, n=a.shape[0])
+
+
+def to_dense(g: CSRGraph) -> np.ndarray:
+    """Dense boolean adjacency (small graphs)."""
+    g = g.host()
+    a = np.zeros((g.n, g.n), dtype=bool)
+    src, dst = edge_list(g)
+    a[src, dst] = True
+    return a
+
+
+class GraphBuilder:
+    """Deferred mutations, the reference's ``addEdge``/``removeEdge`` then
+    ``update()`` workflow: ``update`` is one rebuild into a new
+    :class:`CSRGraph`, last operation wins per directed pair."""
+
+    def __init__(self, base: Optional[CSRGraph] = None,
+                 n: Optional[int] = None):
+        self._base = base
+        self._n = n if n is not None else (base.n if base is not None else 0)
+        self._add: list[tuple[int, int, float]] = []
+        self._rem: list[tuple[int, int]] = []
+
+    def add_edge(self, u: int, v: int, w: float = 1.0) -> "GraphBuilder":
+        self._n = max(self._n, int(u) + 1, int(v) + 1)
+        self._add.append((int(u), int(v), float(w)))
+        return self
+
+    def remove_edge(self, u: int, v: int) -> "GraphBuilder":
+        self._rem.append((int(u), int(v)))
+        return self
+
+    def respan(self, n: int) -> "GraphBuilder":
+        """Grow the vertex range to at least ``n``."""
+        self._n = max(self._n, int(n))
+        return self
+
+    def update(self) -> CSRGraph:
+        """Commit the pending operations: removals first, then additions,
+        the last addition of a pair giving its weight.  The result is
+        weighted iff the base was or an addition carries a weight other
+        than 1; vertex values are kept, a respan extends them with 0."""
+        if self._base is not None:
+            src, dst, w = edge_list(self._base, with_weights=True)
+        else:
+            src = np.empty(0, dtype=np.int64)
+            dst = np.empty(0, dtype=np.int64)
+            w = None
+        if self._rem:
+            rem = np.asarray(self._rem, dtype=np.int64).reshape(-1, 2)
+            hi = max(self._n, 1)
+            keep = ~np.isin(src * hi + dst, rem[:, 0] * hi + rem[:, 1])
+            src, dst = src[keep], dst[keep]
+            if w is not None:
+                w = w[keep]
+        if self._add:
+            add = np.asarray([(u, v) for u, v, _ in self._add],
+                             dtype=np.int64)
+            addw = np.asarray([x for _, _, x in self._add], dtype=np.float32)
+            if w is not None or bool(np.any(addw != 1.0)):
+                base_w = w if w is not None \
+                    else np.ones(src.shape[0], dtype=np.float32)
+                w = np.concatenate([base_w, addw])
+            src = np.concatenate([src, add[:, 0]])
+            dst = np.concatenate([dst, add[:, 1]])
+        vv = None
+        if self._base is not None and self._base.values is not None:
+            old = _np(self._base.values)
+            if old.shape[0] < self._n:
+                vv = np.zeros(self._n, dtype=old.dtype)
+                vv[: old.shape[0]] = old
+            else:
+                vv = old
+        g = from_edges(src, dst, n=self._n, weights=w, vertex_values=vv)
+        self._base, self._add, self._rem = g, [], []
+        return g

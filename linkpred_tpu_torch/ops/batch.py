@@ -1,16 +1,18 @@
-"""Batch updates on the host (counterpart of ``linkpred_tpu/ops/batch.py``):
-deletion and insertion sampling, tidying and applying.  The device variant
-waits."""
+"""Batch updates (counterpart of ``linkpred_tpu/ops/batch.py``): deletion
+and insertion sampling, tidying and applying on the host, and a deletion
+sampler on the device."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..graph import CSRGraph, edge_list, from_edges
+from ..utils.device import resolve_device
 
 __all__ = ["generate_edge_deletions", "generate_edge_insertions",
-           "tidy_batch", "apply_batch"]
+           "tidy_batch", "apply_batch", "generate_edge_deletions_device"]
 
 RETRIES = 5
 
@@ -145,3 +147,23 @@ def apply_batch(
         src = np.concatenate([src, insertions[:, 0]])
         dst = np.concatenate([dst, insertions[:, 1]])
     return from_edges(src, dst, n=g.n, weights=w)
+
+
+def generate_edge_deletions_device(
+    generator: torch.Generator, g: CSRGraph, batch_size: int, device="cuda",
+):
+    """Deletion sampling on ``device`` in one pass without retries: a
+    uniform vertex ``u``, then a uniform edge of ``u``; picks of degree 0
+    are flagged invalid.  ``generator`` is a ``torch.Generator`` on that
+    device.  Returns ``(pairs int32[batch, 2], valid bool[batch])``; a
+    valid pair is an edge of ``g``."""
+    device = resolve_device(device)
+    gd = g.to(device)
+    u = torch.randint(0, max(g.n, 1), (batch_size,), generator=generator,
+                      device=device)
+    d = gd.degrees[u]
+    r = torch.rand(batch_size, generator=generator, device=device)
+    # r * d in float32 can round up to d: clamp to the last edge
+    vi = torch.minimum((r * d).to(torch.int32), (d - 1).clamp(min=0))
+    v = gd.indices[(gd.offsets[u] + vi).to(torch.int64)]
+    return torch.stack([u.to(torch.int32), v], dim=1), d > 0

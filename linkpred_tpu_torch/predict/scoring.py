@@ -9,11 +9,12 @@ streams, as the plan decides:
   window (a view) is sorted on ``w << 32 | u`` with the degree pair and the
   AA/RA weights gathered through the permutation;
 * the edge stream (``tile_candidates``, IHub at scale): the tile's edge rows
-  are expanded on the device (an exclusive prefix of the rows' slot counts,
-  a scatter-max of row starts, a cummax), the candidates gathered from the
-  CSR ``indices``, and the killer rows' slots ride the sort with a flag in
-  the low bit of ``u << 1 | real`` (K1's killer branch).  Ids too wide for
-  the w key (n > 2^30) take the sentinel two-key branch, plain torch.
+  are expanded on the device (an inclusive prefix of the tile's rows'
+  slot counts, and a binary search of it for each lane's row), the
+  candidates gathered from the CSR ``indices``, and the killer rows' slots
+  ride the sort with a flag in the low bit of ``u << 1 | real`` (K1's
+  killer branch).  Ids too wide for the w key (n > 2^30) take the
+  sentinel two-key branch, plain torch.
 
 Every tile's selection keys and (u, v) lanes go to one buffer, and one
 selection per metric over all lanes picks the top k (``_select_topk``);
@@ -148,45 +149,57 @@ def tile_candidates_packed(
                               min_score=min_score, deg16=deg16)
 
 
+def _slot_map(fe_work, t_start: int, t_end: int, iota):
+    """One edge tile's slot -> row map, from the tile's own rows.
+
+    ``fe_work[t_start:t_end]`` are the tile's rows (the first ``cap =
+    len(iota)`` of them; one row when the tile has none, as the window of
+    an empty tile reads its first row).  Lane ``l`` belongs to the row
+    whose slot range ``[incl - work, incl)`` holds it: a binary search of
+    the rows' inclusive slot prefix, where ``right=True`` steps over rows
+    without work.  A dead lane (``l >= total``) searches ``total - 1``
+    instead, so it takes the last row with work, or row 0 when no row has
+    any: the row the reference's scatter of row starts and running max
+    give it.  ``iota`` is the int32 lane ids.  Returns ``(rows, eprefix,
+    total, eloc)``: the rows' slice of the stream, their exclusive slot
+    prefix, the tile's slot total (a 1-lane tensor) and the int64 row of
+    each lane."""
+    nrows = min(t_end - t_start, iota.shape[0])
+    rows = slice(t_start, t_start + max(nrows, 1))
+    ework = fe_work[rows] if nrows > 0 else torch.zeros(
+        1, dtype=fe_work.dtype, device=fe_work.device)
+    incl = torch.cumsum(ework, 0, dtype=torch.int32)
+    total = incl[-1:]
+    eloc = torch.searchsorted(incl, torch.minimum(iota, total - 1),
+                              right=True)
+    return rows, incl - ework, total, eloc
+
+
 def _edge_slots(indices, stream, t_start: int, t_end: int, *, cap: int,
                 weighted: bool):
-    """Rebuild one edge tile's slot map on the device and gather each
-    slot's candidate.  ``stream`` is the plan's ``(fe_work, fe_adr,
-    fe_usrc, fe_middeg)``.  Returns ``(iota, svalid, w, u, real, dmid)``:
-    lane ids, live slots, candidate w, source u, real (not a killer row),
-    and deg(mid) (None unless ``weighted``)."""
+    """Build one edge tile's slot map on the device (:func:`_slot_map`)
+    and gather each slot's candidate.  ``stream`` is the plan's
+    ``(fe_work, fe_adr, fe_usrc, fe_middeg)``.  Returns ``(iota, svalid, w,
+    u, real, dmid)``: lane ids, live slots, candidate w, source u, real (not
+    a killer row), and deg(mid) (None unless ``weighted``)."""
     fe_work, fe_adr, fe_usrc, fe_middeg = stream
-    dev = fe_work.device
-    iota = torch.arange(cap, dtype=torch.int32, device=dev)
-
-    def window(a):
-        # the plan pads fe_* to m1 + cap, so a plain slice is a full window
-        # (the reference's dynamic_slice would clamp its start instead)
-        win = a[t_start: t_start + cap]
-        if win.shape[0] != cap:
-            raise ValueError(f"edge window [{t_start}, +{cap}) runs past "
-                             f"the stream ({a.shape[0]} rows)")
-        return win
-
-    ework = torch.where(iota < (t_end - t_start), window(fe_work), 0)
-    incl = torch.cumsum(ework, 0, dtype=torch.int32)
-    eprefix = incl - ework                  # exclusive slot prefix per row
-    # slot -> row: each row's first slot gets the row id (rows without
-    # slots go to the extra slot cap), then a running max fills the rest
-    pos = torch.where(ework > 0, eprefix, cap).to(torch.int64)
-    starts = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
-    starts.scatter_reduce_(0, pos, iota, reduce="amax")
-    eloc = torch.cummax(starts[:cap], 0).values.to(torch.int64)
-    svalid = iota < incl[-1]
+    # the plan pads fe_* to m1 + cap, so every tile's window lies inside
+    # the stream (the reference's dynamic_slice would clamp its start)
+    if t_start + cap > fe_work.shape[0]:
+        raise ValueError(f"edge window [{t_start}, +{cap}) runs past "
+                         f"the stream ({fe_work.shape[0]} rows)")
+    iota = torch.arange(cap, dtype=torch.int32, device=fe_work.device)
+    rows, eprefix, total, eloc = _slot_map(fe_work, t_start, t_end, iota)
+    svalid = iota < total
     # adr = fe_adr[row] + (lane - eprefix[row]): one gather for both.
     # Lanes past the tile's total read past their row; the reference's
     # gather clamps there, and so does this one (those slots are dead).
-    adr = (window(fe_adr) - eprefix)[eloc] + iota
+    adr = (fe_adr[rows] - eprefix)[eloc] + iota
     w = indices[adr.clamp_(max=indices.shape[0] - 1).to(torch.int64)]
-    raw = window(fe_usrc)[eloc]
+    raw = fe_usrc[rows][eloc]
     real = raw >= 0                         # killer rows store ~src
     u = torch.where(real, raw, ~raw)
-    dmid = window(fe_middeg)[eloc] if weighted else None
+    dmid = fe_middeg[rows][eloc] if weighted else None
     return iota, svalid, w, u, real, dmid
 
 

@@ -697,3 +697,67 @@ def test_all_models_cuda_matches_cpu(cuda):
         _same_results({p.metric: p.predict(g, max_edges=80)},
                       {q.metric: q.predict(g, max_edges=80)})
     assert ft.LAUNCHES > before
+
+
+def test_edge_slot_map_on_the_card(rng, cuda):
+    """The edge tile's slot map on the card equals the CPU's on every lane
+    of every tile of an IHub edge plan (zero-work rows, killers)."""
+    from linkpred_tpu_torch.ops.transform import remove_self_loops, symmetrize
+
+    src, dst = rng.integers(0, 300, 1500), rng.integers(0, 300, 1500)
+    g = remove_self_loops(symmetrize(lt.from_edges(src, dst, n=300)))
+    p = build_plan(g, 0, 1024, slot_budget=0, device="cpu")
+    assert not p.packed
+    ts = p.tile_start
+    card, cpu = p.device_stream(cuda), p.device_stream("cpu")
+    iota = torch.arange(p.cap, dtype=torch.int32)
+    for t in range(len(ts) - 1):
+        s, e = int(ts[t]), int(ts[t + 1])
+        if s == e:
+            continue
+        got = scoring._slot_map(card[0], s, e, iota.to(cuda))
+        want = scoring._slot_map(cpu[0], s, e, iota)
+        assert torch.equal(got[3].cpu(), want[3])
+        assert torch.equal(got[2].cpu(), want[2])
+
+
+def test_host_helpers_on_the_card(rng, cuda):
+    """BFS, the top-k helpers, xorshift32, scatter_or and the device
+    deletions on the card against the port's CPU path (the deletions by
+    their contract: the two devices draw differently)."""
+    from linkpred_tpu_torch.ops import batch, topk, traverse, vector
+    from linkpred_tpu_torch.ops.transform import remove_self_loops, symmetrize
+    from linkpred_tpu_torch.utils import random as xr
+
+    src, dst = rng.integers(0, 500, 900), rng.integers(0, 500, 900)
+    g = remove_self_loops(symmetrize(lt.from_edges(src, dst, n=500)))
+    for start in (0, 250, rng.random(500) < 0.02):
+        assert np.array_equal(traverse.bfs_levels(g, start, device=cuda),
+                              traverse.bfs_levels(g, start, device="cpu"))
+    s = (rng.integers(0, 50, 5000) / 8).astype(np.float32)
+    s[rng.random(5000) < 0.1] = -np.inf
+    u, v = (rng.integers(0, 999, 5000).astype(np.int32) for _ in range(2))
+    args = [torch.as_tensor(a) for a in (s, u, v)]
+    got = topk.topk_from_candidates(*(a.to(cuda) for a in args), 700)
+    want = topk.topk_from_candidates(*args, 700)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    merged = topk.topk_merge(got, topk.topk_init(700, device=cuda))
+    assert torch.equal(merged.scores.cpu(), want.scores)
+    states = rng.integers(0, 1 << 32, 1 << 16, dtype=np.int64)
+    assert torch.equal(xr.xorshift32_step(states, device=cuda).cpu(),
+                       xr.xorshift32_step(states, device="cpu"))
+    ids = rng.integers(0, 100, 20000).astype(np.int32)
+    x = rng.integers(-2 ** 31, 2 ** 31, 20000).astype(np.int32)
+    a = np.zeros(100, np.int32)
+    cpu_args = [torch.as_tensor(t) for t in (a, ids, x)]
+    assert torch.equal(
+        vector.scatter_or(*(t.to(cuda) for t in cpu_args)).cpu(),
+        vector.scatter_or(*cpu_args))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pairs, valid = batch.generate_edge_deletions_device(gen, g, 4000,
+                                                        device=cuda)
+    p, ok = pairs.cpu().numpy(), valid.cpu().numpy()
+    deg = np.asarray(g.degrees)
+    assert np.array_equal(ok, deg[p[:, 0]] > 0)
+    assert all(g.has_edge(a, b) for a, b in p[ok])

@@ -198,6 +198,108 @@ def test_edge_window_past_stream_raises(rng):
             min_score=0.0, w_bits=pp.w_bits, deg16=pp.deg16, upper_only=True)
 
 
+def _cummax_slot_map(fe_work, t_start, t_end, cap):
+    """The oracle: the reference's slot map (``scoring.py`` of
+    ``linkpred_tpu``, ``.at[pos].max(iota, mode="drop")`` + ``cummax``) as
+    the port first carried it.  Over the whole window, rows past the tile
+    masked: each row with work writes its id at its first slot, the rest
+    go to a drop slot, and a running max fills the lanes.  Returns
+    ``(eloc, eprefix, total)`` over the window's ``cap`` rows."""
+    iota = torch.arange(cap, dtype=torch.int32)
+    ework = torch.where(iota < (t_end - t_start),
+                        fe_work[t_start: t_start + cap], 0)
+    incl = torch.cumsum(ework, 0, dtype=torch.int32)
+    eprefix = incl - ework
+    pos = torch.where(ework > 0, eprefix, cap).to(torch.int64)
+    starts = torch.zeros(cap + 1, dtype=torch.int32)
+    starts.scatter_reduce_(0, pos, iota, reduce="amax")
+    return torch.cummax(starts[:cap], 0).values.to(torch.int64), eprefix, \
+        incl[-1]
+
+
+CAP = 16
+# (rows of the tile, rows of the next tile inside the window); a tile's
+# rows carry at most CAP slots
+SLOT_TILES = {
+    "zero-work rows at the start, middle and end": (
+        [0, 0, 3, 0, 2, 0, 0, 4, 1, 0, 0], [5, 2, 7]),
+    "one row fills the tile": ([CAP], [3, 1]),
+    "one row fills the tile between zero-work rows": ([0, CAP, 0], [9]),
+    "every row without work": ([0, 0, 0, 0], [4, 4]),
+    "one row without work": ([0], [6]),
+    "no row": ([], [3, 3]),
+    "rows up to the cap, then the next tile": ([2] * 8, [1] * 20),
+    "more zero-work rows than lanes": ([0] * (CAP + 5) + [4], [2]),
+}
+
+
+def _slot_stream(rows, nxt, t_start, rng):
+    """An edge stream with ``t_start`` rows before the tile, the tile's
+    ``rows``, the next tile's ``nxt`` and padding to a full window.  Each
+    row's source is its own index (every third row a killer, stored as
+    ``~index``), so the gathered ``u`` names the row a lane read."""
+    work = np.concatenate([rng.integers(0, 5, t_start), rows, nxt,
+                           np.zeros(CAP, np.int64)]).astype(np.int32)
+    m = work.shape[0]
+    ids = np.arange(m, dtype=np.int32)
+    usrc = np.where(ids % 3 == 2, ~ids, ids).astype(np.int32)
+    adr = rng.integers(0, 200, m).astype(np.int32)
+    middeg = rng.integers(1, 50, m).astype(np.int32)
+    return tuple(torch.as_tensor(a) for a in (work, adr, usrc, middeg))
+
+
+def _check_slots(stream, indices, t_start, t_end):
+    """``_slot_map``'s rows and ``_edge_slots``' gathers against the
+    oracle's map on every lane, the dead ones included."""
+    fe_work, fe_adr, fe_usrc, fe_middeg = stream
+    want, eprefix, total = _cummax_slot_map(fe_work, t_start, t_end, CAP)
+    rows, _, got_total, eloc = scoring._slot_map(
+        fe_work, t_start, t_end, torch.arange(CAP, dtype=torch.int32))
+    np.testing.assert_array_equal(eloc.numpy(), want.numpy())
+    assert int(got_total) == int(total)
+    iota, svalid, w, u, real, dmid = scoring._edge_slots(
+        indices, stream, t_start, t_end, cap=CAP, weighted=True)
+    win = slice(t_start, t_start + CAP)
+    adr = ((fe_adr[win] - eprefix)[want] + iota).clamp(
+        max=indices.shape[0] - 1)
+    raw = fe_usrc[win][want]
+    np.testing.assert_array_equal(u.numpy(), (t_start + want).numpy())
+    np.testing.assert_array_equal(real.numpy(), (raw >= 0).numpy())
+    np.testing.assert_array_equal(w.numpy(), indices[adr.long()].numpy())
+    np.testing.assert_array_equal(dmid.numpy(), fe_middeg[win][want].numpy())
+    np.testing.assert_array_equal(svalid.numpy(), (iota < total).numpy())
+
+
+@pytest.mark.parametrize("case", list(SLOT_TILES))
+@pytest.mark.parametrize("t_start", [0, 5])
+def test_edge_slot_map_vs_cummax_oracle(rng, case, t_start):
+    """The edge tile's slot map (a binary search of the tile's own rows)
+    gives every lane the row the reference's scatter-max + cummax gives it:
+    zero-work rows anywhere, a row that fills the tile, a tile without
+    work, and the next tile's rows inside the window, which must not leak
+    in."""
+    rows, nxt = SLOT_TILES[case]
+    stream = _slot_stream(rows, nxt, t_start, rng)
+    indices = torch.as_tensor(rng.integers(0, 1000, 300).astype(np.int32))
+    _check_slots(stream, indices, t_start, t_start + len(rows))
+
+
+def test_edge_slot_map_random_tiles_vs_cummax_oracle(rng):
+    """500 random tiles: row counts 0-24 (zero-work rows one in three),
+    slot totals up to the cap, next-tile rows in the window."""
+    indices = torch.as_tensor(rng.integers(0, 1000, 300).astype(np.int32))
+    for _ in range(500):
+        nrows = int(rng.integers(0, 25))
+        rows = np.where(rng.random(nrows) < 1 / 3, 0,
+                        rng.integers(1, 6, nrows))
+        while rows.sum() > CAP:
+            rows[int(np.argmax(rows))] -= 1
+        nxt = rng.integers(0, 6, int(rng.integers(0, 8)))
+        t_start = int(rng.integers(0, 7))
+        _check_slots(_slot_stream(rows, nxt, t_start, rng), indices,
+                     t_start, t_start + nrows)
+
+
 def _star_ring(n_leaves=900, n_sat=50):
     """tests/test_predict.py's mega-hub graph (a hub 0 joined to every leaf
     of a ring), plus satellites hung on the first leaves, so the hub has

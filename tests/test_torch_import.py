@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the reference package
 (every module, the scoring entry points, ``python -m
 linkpred_tpu_torch`` with its log post-processor, the bench row, the sweep,
-the models, npz files and the profiler helper), and its kernel builder
+the models, npz files, the profiler helper, the graph builder and the
+small host and device helpers), and its kernel builder
 fails loudly without nvcc."""
 import os
 import subprocess
@@ -35,6 +36,25 @@ assert not edge.packed
 res_e = lt.predict_links(g, "jaccard", min_degree1=0, plan=edge,
                          device="cpu", options=lt.PredictOptions(max_edges=10))
 assert np.array_equal(res_e.score, res.score), (res_e.score, res.score)
+from linkpred_tpu_torch.ops import batch, properties, setops, topk, traverse
+from linkpred_tpu_torch.ops import scan, vector
+from linkpred_tpu_torch.utils import numeric, random as xr
+assert lt.GraphBuilder(g).add_edge(0, 39).update().has_edge(0, 39)
+assert traverse.bfs_levels(g, 0, device="cpu")[0] == 0
+assert properties.communities_disconnected(
+    g, np.zeros(40, int), device="cpu").size <= 1
+assert xr.xorshift32_step(torch.tensor([1]), device="cpu").tolist() == [270369]
+assert numeric.next_prime(13) == 17 and setops.unique_last([1, 1]).size == 1
+assert len(topk.topk_merge(topk.topk_init(3, device="cpu"),
+                           topk.topk_init(3, device="cpu")).u) == 3
+assert int(scan.inclusive_scan(torch.arange(4))[-1]) == 6
+assert vector.scatter_or(torch.zeros(2, dtype=torch.int32),
+                         torch.tensor([0, 0]),
+                         torch.tensor([1, 2], dtype=torch.int32)).tolist() \
+    == [3, 0]
+pairs, ok = batch.generate_edge_deletions_device(torch.Generator(), g, 5,
+                                                 device="cpu")
+assert pairs.shape == (5, 2)
 from linkpred_tpu_torch.experiments.pallas_smoke import affine_smoke
 assert affine_smoke(torch.arange(3, dtype=torch.int32)).tolist() == [1, 3, 5]
 from linkpred_tpu_torch.experiments import (pallas_bitonic, pallas_bitonic2,
