@@ -44,6 +44,25 @@ helpers over 2^21 candidates at phase 5's k, the device deletion sampler at
 0.1|E| of phase 5's graph, ``xorshift32_step`` and ``scatter_or`` over 2^24
 lanes.
 
+Phase 11 drives the sharded pass (``parallel/``): (a) a one-rank NCCL
+process group in this process, ``predict_links(mesh=)`` on phase 5's graph
+and plan against the plain pass; (b) ``python -m
+linkpred_tpu_torch.parallel.sim 2`` on the one card over gloo (NCCL refuses
+two ranks on one device): LHub RMAT-19 and the IHub edge stream at RMAT-17,
+each exact against rank 0's single-process pass, every rank's stream bytes
+against the padded total / 2, its priced device bytes against its free
+memory, its K1 and K2 launches, its pass and gather times; (c) the port's
+dry run (deletions, ``apply_batch``, the sharded pass) at D = 2.
+
+Phase 12 drives the GraphSAGE family (``models/gnn.py``) at the module's
+widths (hidden 64, out 32, 8 degree features, batch 4096): on phase 8's
+planted graph with 0.1|E| held out, 150 training steps full-graph and
+``fanouts=(10, 10)`` on the card, held-out AUC > 0.65, the card-trained
+parameters encoding on the CPU as on the card; on phase 5's RMAT-19, 20
+steps of each with their ms a step, then ``GNNPredictor`` and
+``HybridPredictor`` on LHub Jaccard deg 64 candidates at k = the removed
+edges, their recall beside the heuristic's.
+
     python3 chip_smoke.py [scale]
     python3 chip_smoke.py --k1-ab OTHER_TREE
 
@@ -2443,6 +2462,311 @@ def phase_host_layer(device, main_path):
     print("  phase 10 parts: " + ", ".join(times))
 
 
+# ----------------------------------------- phase 11: the sharded pass
+
+# The scale of the edge-stream IHub graph phase 11's two ranks share.
+SIM_IHUB_SCALE = 17
+
+
+def sim_records(argv, timeout: int = 900):
+    """``python -m linkpred_tpu_torch.parallel.sim argv...``: it must exit
+    0 (every rank, rank 0's check against the single-process pass
+    included).  Returns (the ranks' records, wall seconds)."""
+    out, wall = run_module(["linkpred_tpu_torch.parallel.sim", *argv],
+                           timeout=timeout)
+    recs = [json.loads(line.split("SIM ", 1)[1]) for line in
+            out.splitlines() if "SIM {" in line]
+    check("sim: OK" in out and recs, f"parallel.sim {argv}: {out[-3000:]}")
+    return recs, wall
+
+
+def phase_one_rank(device, main_path, tmp):
+    """Part (a): a one-rank process group on the card (NCCL),
+    ``predict_links(mesh=)`` on phase 5's graph, plan and k against the
+    plain pass: the same score multiset and the same pairs above the k-th
+    score.  Returns the K1 and K2 launches of the sharded run."""
+    import torch
+    import torch.distributed as dist
+
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+    from linkpred_tpu_torch.ops.topk import TopK
+    from linkpred_tpu_torch.parallel import distributed, mesh as pmesh
+
+    y, _, plan, k = main_path
+    spec = lt.METRICS["jaccard_coefficient"]
+    opts = lt.PredictOptions(repeat=5, max_edges=k)
+    single = lt.predict_links(y, spec.name, min_degree1=64, options=opts,
+                              plan=plan, device=device)
+    distributed.init_distributed(
+        f"file://{tmp}/one_rank", 1, 0,
+        backend=distributed.default_backend(1, device.type))
+    try:
+        mesh = pmesh.make_mesh(1, device=device)
+        ft.LAUNCHES = compact.LAUNCHES = 0
+        sharded = lt.predict_links(y, spec.name, min_degree1=64,
+                                   options=opts, plan=plan, mesh=mesh)
+        launches = {"fused_tail": ft.LAUNCHES,
+                    "pack_survivors": compact.LAUNCHES}
+        kk = sharded.u.shape[0]
+        buf = TopK(*(torch.zeros((1, kk), dtype=dt, device=device)
+                     for dt in (torch.float32, torch.int32, torch.int32)))
+        gather_ms = cuda_ms(lambda: pmesh.gather_topk(buf, mesh, kk))
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    same_result(sharded, single, spec, "sharded (a) one rank")
+    check(all(v > 0 for v in launches.values()),
+          f"sharded (a): a kernel never launched: {launches}")
+    print(f"  (a) one rank, {backend}, {device}: LHub Jaccard deg 64 "
+          f"n={y.n}, k {k}: {len(sharded)} predictions == the plain pass; "
+          f"scoring_ms {sharded.scoring_ms:.3f} (plain "
+          f"{single.scoring_ms:.3f}); all-gather of [1, {kk}] "
+          f"{gather_ms:.4f} ms; launches {launches}")
+    return launches
+
+
+def phase_two_ranks(tmp, main_path):
+    """Part (b): two rank processes on the one card (gloo: NCCL refuses
+    two ranks on one device), LHub Jaccard deg 64 on phase 5's graph and
+    the IHub edge stream at RMAT-``SIM_IHUB_SCALE``, each exact against
+    rank 0's single-process pass.  Each rank's stream bytes, priced bytes
+    against free memory, launches, pass and gather times are printed.
+    Returns the ranks' K1 and K2 launches."""
+    from linkpred_tpu_torch.io.npz import save_graph
+
+    y, _, _, k = main_path
+    y_ihub, _, k_ihub, _ = bench_graph(SIM_IHUB_SCALE)
+    save_graph(y, os.path.join(tmp, "lhub.npz"))
+    save_graph(y_ihub, os.path.join(tmp, "ihub.npz"))
+    spec = [dict(name="lhub_rmat19", graph=os.path.join(tmp, "lhub.npz"),
+                 metrics=["jaccard_coefficient"], min_degree1=64, cap=None,
+                 max_edges=k, repeat=5),
+            dict(name=f"ihub_edge_rmat{SIM_IHUB_SCALE}",
+                 graph=os.path.join(tmp, "ihub.npz"),
+                 metrics=["jaccard_coefficient"], min_degree1=0, cap=None,
+                 slot_budget=0, max_edges=k_ihub, repeat=1)]
+    path = os.path.join(tmp, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    recs, wall = sim_records(["2", "--device", "cuda", "--spec", path,
+                              "--timeout", "800"])
+    launches = {"fused_tail": 0, "pack_survivors": 0}
+    for r in sorted(recs, key=lambda r: (r["case"], r["rank"])):
+        share = r["padded_total_bytes"] / 2 + r["cap_tail_bytes"]
+        print(f"  (b) {r['case']} rank {r['rank']}/{r['world']} "
+              f"{r['backend']} {r['device']}: {r['tiles']} tiles (cap "
+              f"{r['cap']}, {r['passes']} pass(es), packed {r['packed']}); "
+              f"stream {r['stream_bytes']} B of {r['padded_total_bytes']} B "
+              f"padded ({r['stream_bytes'] / share:.3f} x total/2 + one cap "
+              f"tail of {r['cap_tail_bytes']} B); priced "
+              f"{r['priced_bytes']} B against {r['free_bytes']} B free; "
+              f"launches K1 {r['k1_launches']}, K2 {r['k2_launches']}; "
+              f"plan_ms {r['plan_ms']:.1f}, pass {r['pass_ms']:.3f} ms, "
+              f"gather {r['gather_ms']:.3f} ms; {r['results']} results")
+        check(r["stream_bytes"] < r["padded_total_bytes"],
+              f"sharded (b) {r['case']} rank {r['rank']}: holds the whole "
+              "stream")
+        if r["packed"] and r["passes"] == 1:
+            check(r["stream_bytes"] <= 1.125 * (share + r["cap_tail_bytes"]),
+                  f"sharded (b) {r['case']} rank {r['rank']}: more than its "
+                  "share")
+        check(r["priced_bytes"] <= r["free_bytes"],
+              f"sharded (b) {r['case']} rank {r['rank']}: priced over free")
+        check(r["stream_bytes"] == 0 or r["k1_launches"] > 0,
+              f"sharded (b) {r['case']} rank {r['rank']}: K1 never ran")
+        launches["fused_tail"] += r["k1_launches"]
+        launches["pack_survivors"] += r["k2_launches"]
+    check(len(recs) == 4, f"sharded (b): {len(recs)} records")
+    print(f"  (b) two ranks: rc 0 in {wall:.1f} s; launches {launches}")
+    return launches
+
+
+def phase_sharded(device, main_path):
+    """Phase 11, parts (a)-(c).  Returns the K1 and K2 launches of (a) and
+    of (b)'s ranks."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        one = phase_one_rank(device, main_path, tmp)
+        t1 = time.perf_counter()
+        two = phase_two_ranks(tmp, main_path)
+        t2 = time.perf_counter()
+    recs, wall = sim_records(["2", "--device", "cuda", "--dryrun",
+                              "--timeout", "300"])
+    rank0 = [r for r in recs if r["rank"] == 0][0]
+    check(len(recs) == 2 and rank0["results"] > 0 and rank0["recall"] > 0,
+          f"sharded (c): {recs}")
+    print(f"  (c) the dry run at D = 2 on {rank0['device']}: "
+          f"{rank0['results']} predictions == the single-process pass, "
+          f"recall {rank0['recall']:.4f}; rc 0 in {wall:.1f} s")
+    print(f"  phase 11 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+          f"(c) {wall:.1f} s")
+    return {name: one[name] + two[name] for name in one}
+
+
+# ------------------------------------------- phase 12: the GraphSAGE family
+
+GNN_STEPS = 150
+GNN_RMAT_STEPS = 20
+
+
+def held_out_auc(params, feats, y, g, deletions, rng) -> float:
+    """Pairwise AUC of the held-out edges against as many random
+    non-edges of ``g``, scored by the full-graph encode of ``y``."""
+    import torch
+
+    from linkpred_tpu_torch.models import gnn
+
+    dev = params.l1.w.device
+    esrc, edst, deg, _, _ = gnn._graph_tensors(y, dev)
+    with torch.no_grad():
+        emb = gnn.sage_encode(params, torch.as_tensor(feats, device=dev),
+                              esrc, edst, deg)
+    pos = deletions[deletions[:, 0] < deletions[:, 1]]
+    neg = []
+    while len(neg) < len(pos):
+        u, v = int(rng.integers(0, y.n)), int(rng.integers(0, y.n))
+        if u != v and not g.has_edge(u, v):
+            neg.append((min(u, v), max(u, v)))
+    neg = np.asarray(neg)
+
+    def score(p):
+        return gnn.sddmm_scores(emb, torch.as_tensor(p[:, 0], device=dev),
+                                torch.as_tensor(p[:, 1], device=dev)
+                                ).cpu().numpy()
+
+    ps, ns = score(pos), score(neg)
+    return float(np.mean(ps[:, None] > ns[None, :])
+                 + 0.5 * np.mean(ps[:, None] == ns[None, :]))
+
+
+def train_ms(g, fanouts, steps, device):
+    """(params, feats, loss, ms a step): ``steps`` steps of ``train_sage``'s
+    own step function at the module's widths.  The first step warms the
+    libraries up; the other ``steps - 1`` are timed by CUDA events around
+    the step loop alone, so the set-up (edge list, degree features,
+    uploads) falls outside the window."""
+    from linkpred_tpu_torch.models import gnn
+
+    params, feats, step = gnn._sage_trainer(g, fanouts=fanouts,
+                                            device=device)
+    losses = []
+    ms = cuda_ms(lambda: losses.append(step()), steps - 1)
+    return params, feats, float(losses[-1]), ms
+
+
+def phase_gnn_planted(device):
+    """Part (a): phase 8's planted graph with 0.1|E| held out; train on
+    the card at full width, full-graph and ``fanouts=(10, 10)``, and hold
+    the held-out AUC above 0.65; the card-trained parameters encode on the
+    CPU as on the card (rtol 1e-4, atol 2e-5 on the unit-norm embeddings:
+    float32 inner products of up to 128 terms and neighbour sums of ~90,
+    added in other orders on the two devices, err by up to ~K eps)."""
+    import copy
+
+    import torch
+
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+    from linkpred_tpu_torch.models import gnn
+    from linkpred_tpu_torch.ops.batch import (apply_batch,
+                                              generate_edge_deletions,
+                                              tidy_batch)
+
+    g = planted_partition_graph(20, 100, p_in=0.3, p_out=0.0005, seed=3)
+    rng = np.random.default_rng(0)
+    deletions = generate_edge_deletions(rng, g, g.size // 10,
+                                        undirected=True)
+    deletions, ins = tidy_batch(deletions, np.empty((0, 2), np.int64), g)
+    y = apply_batch(g, deletions, ins)
+    for fanouts in (None, (10, 10)):
+        params, feats, loss, ms = train_ms(y, fanouts, GNN_STEPS, device)
+        auc = held_out_auc(params, feats, y, g, deletions, rng)
+        embs = []
+        for p in (params, copy.deepcopy(params).to("cpu")):
+            dev = p.l1.w.device
+            esrc, edst, deg, _, _ = gnn._graph_tensors(y, dev)
+            with torch.no_grad():
+                embs.append(gnn.sage_encode(
+                    p, torch.as_tensor(feats, device=dev), esrc, edst,
+                    deg).cpu())
+        err = float((embs[0] - embs[1]).abs().max())
+        print(f"  (a) planted n={y.n} |E|={y.size}, {len(deletions) // 2} "
+              f"held out; fanouts {fanouts}: {GNN_STEPS} steps, loss "
+              f"{loss:.4f}, {ms:.3f} ms a step; held-out AUC {auc:.4f}; "
+              f"card vs CPU encode max abs err {err:.3e}")
+        check(auc > 0.65, f"gnn (a) fanouts {fanouts}: AUC {auc}")
+        check(np.allclose(embs[0].numpy(), embs[1].numpy(), rtol=1e-4,
+                          atol=2e-5),
+              f"gnn (a) fanouts {fanouts}: card and CPU encodes differ "
+              f"({err})")
+
+
+def phase_gnn_rmat(device, main_path):
+    """Part (b): phase 5's RMAT-19 graph.  20 full-graph and 20 sampled
+    training steps with their ms a step, then ``GNNPredictor`` and
+    ``HybridPredictor`` with LHub Jaccard deg 64 candidates at k = the
+    removed edges, beside the heuristic's recall.  Returns the K1 and K2
+    launches of the two predictors."""
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.models import (GNNPredictor, HeuristicPredictor,
+                                           HybridPredictor)
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+
+    y, deletions, plan, k = main_path
+    removed = {(int(a), int(b)) for a, b in deletions if a < b}
+    for fanouts in (None, (10, 10)):
+        params, feats, loss, ms = train_ms(y, fanouts, GNN_RMAT_STEPS,
+                                           device)
+        check(np.isfinite(loss), f"gnn (b) fanouts {fanouts}: loss {loss}")
+        print(f"  (b) RMAT n={y.n} |E|={y.size}, fanouts {fanouts}: "
+              f"{GNN_RMAT_STEPS} steps, loss {loss:.4f}, {ms:.3f} ms a step")
+    heur = lt.predict_links(y, "jaccard_coefficient", min_degree1=64,
+                            options=lt.PredictOptions(max_edges=k),
+                            plan=plan, device=device)
+    gnn_p = GNNPredictor(params, feats, candidate_metric="jaccard",
+                         min_degree1=64, device=device.type)
+    hyb = HybridPredictor(gnn_p, HeuristicPredictor(
+        "jaccard", 64, cap=plan.cap, device=device.type))
+    ft.LAUNCHES = compact.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res_g = gnn_p.predict(y, max_edges=k)
+    t1 = time.perf_counter()
+    res_h = hyb.predict(y, max_edges=k)
+    t2 = time.perf_counter()
+    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    for name, res in (("GNN", res_g), ("hybrid", res_h)):
+        check(len(res) == k and np.isfinite(res.score).all()
+              and np.all(np.diff(res.score) <= 0)
+              and np.all(res.u < res.v),
+              f"gnn (b) {name}: k finite descending u < v results")
+    print(f"  (b) at k = {k} (candidates {4 * k}, LHub Jaccard deg 64): "
+          f"recall GNN {recall_of(res_g, removed):.6f} ({t1 - t0:.1f} s), "
+          f"hybrid {recall_of(res_h, removed):.6f} ({t2 - t1:.1f} s), "
+          f"heuristic {recall_of(heur, removed):.6f}; launches {launches}")
+    # K2 runs where a selection keeps at most a quarter of 2^22 or more
+    # lanes (scoring._argselect); 4k candidates of 16 tiles of 2^20 lanes
+    # are more, so this path's selections sort and only K1 must run
+    check(launches["fused_tail"] > 0, f"gnn (b): K1 never launched: "
+          f"{launches}")
+    return launches
+
+
+def phase_gnn(device, main_path):
+    """Phase 12, parts (a)-(b).  Returns the K1 and K2 launches of the
+    GNN's candidate passes."""
+    t0 = time.perf_counter()
+    phase_gnn_planted(device)
+    t1 = time.perf_counter()
+    launches = phase_gnn_rmat(device, main_path)
+    print(f"  phase 12 parts: (a) {t1 - t0:.1f} s, (b) "
+          f"{time.perf_counter() - t1:.1f} s")
+    return launches
+
+
 def k1_ab(other: str) -> int:
     """K1's device times (``k1_times``) of the tree at ``other`` and of this
     one, each in a process of its own, in turns: other, this, this,
@@ -2533,26 +2857,29 @@ def main() -> int:
           "top-k merge, device deletions, xorshift32, scatter_or), card "
           "against CPU")
     phase_host_layer(device, main_path)
+    torch.cuda.empty_cache()
+    phase("phase 11: the sharded pass (one rank on NCCL; two rank "
+          "processes on the one card over gloo; the dry run)")
+    sharded = phase_sharded(device, main_path)
+    torch.cuda.empty_cache()
+    phase("phase 12: the GraphSAGE family at full width (planted graph, "
+          "RMAT-19)")
+    gnn = phase_gnn(device, main_path)
     del main_path
     phase("done")
 
+    paths = {"lhub": lhub, "ihub": ihub, "driver": driver, "bench": bench,
+             "sharded": sharded, "gnn": gnn}
+    by_path = {name: {path: got[name] for path, got in paths.items()}
+               for name in ("fused_tail", "pack_survivors")}
+    by_path["pack_survivors"]["radix_probe"] = probe_packs
     stats = {
         "fused_tail": dict(
-            launches=lhub["fused_tail"] + ihub["fused_tail"]
-            + driver["fused_tail"] + bench["fused_tail"],
-            launches_by_path={"lhub": lhub["fused_tail"],
-                              "ihub": ihub["fused_tail"],
-                              "driver": driver["fused_tail"],
-                              "bench": bench["fused_tail"]}, **k1),
+            launches=sum(by_path["fused_tail"].values()),
+            launches_by_path=by_path["fused_tail"], **k1),
         "pack_survivors": dict(
-            launches=lhub["pack_survivors"] + ihub["pack_survivors"]
-            + driver["pack_survivors"] + bench["pack_survivors"]
-            + probe_packs,
-            launches_by_path={"lhub": lhub["pack_survivors"],
-                              "ihub": ihub["pack_survivors"],
-                              "driver": driver["pack_survivors"],
-                              "bench": bench["pack_survivors"],
-                              "radix_probe": probe_packs}, **k2),
+            launches=sum(by_path["pack_survivors"].values()),
+            launches_by_path=by_path["pack_survivors"], **k2),
         "pallas_tail": p1,
         "affine_smoke": p5,
         "make_pallas_sort": dict(

@@ -17,7 +17,11 @@ Layout (module paths mirror the reference's):
                and the modules of the two CUDA kernels (fused_tail, compact)
   kernels    — the CUDA C++ sources (``csrc/``) and their nvcc builder
   predict    — metrics, host plan, scoring engine, public API
-  models     — the heuristic model zoo (IHub/LHub predictors)
+  models     — the heuristic model zoo (IHub/LHub predictors) and the
+               GraphSAGE family (encoder, SDDMM decoder, training, the GNN
+               and hybrid predictors)
+  parallel   — the sharded pass over torch.distributed (mesh, process
+               group, ``python -m linkpred_tpu_torch.parallel.sim N``)
   bench      — synthetic graphs, the experiment harness, the log → CSV
                post-processor, the bench row (``python -m
                linkpred_tpu_torch.bench.run``), the sweep runner and the

@@ -1,11 +1,13 @@
 """State carried across from the reference package.
 
-The system has no weights: its state is the graph and the tile plan.  These
-helpers turn the reference's ``CSRGraph`` and ``TilePlan`` arrays, handed
-over as NumPy (for instance ``dataclasses.asdict`` of a reference plan),
-into the port's types, without importing the reference.  Pushing the
-reference's own plan through the port's scorer isolates the device engine
-from the port's planner.
+The heuristic engine has no weights: its state is the graph and the tile
+plan.  These helpers turn the reference's ``CSRGraph`` and ``TilePlan``
+arrays, handed over as NumPy (for instance ``dataclasses.asdict`` of a
+reference plan), into the port's types, without importing the reference.
+Pushing the reference's own plan through the port's scorer isolates the
+device engine from the port's planner.  The GraphSAGE model's parameters,
+the one learned state of the reference, cross by
+:func:`sage_params_from_jax`.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 from .graph import CSRGraph
 from .predict.plan import TilePlan
 
-__all__ = ["graph_from_arrays", "plan_from_fields"]
+__all__ = ["graph_from_arrays", "plan_from_fields", "sage_params_from_jax"]
 
 _PLAN_FIELDS = {f.name for f in dataclasses.fields(TilePlan)} - {"_device"}
 
@@ -45,3 +47,23 @@ def plan_from_fields(**fields) -> TilePlan:
             value = np.asarray(value)
         kw[name] = value
     return TilePlan(**kw)
+
+
+def sage_params_from_jax(params, device="cuda"):
+    """The port's ``SageModel`` on ``device`` from the reference's
+    GraphSAGE parameters ``{"l1": {"w", "b"}, "l2": {"w", "b"}}`` (arrays
+    as NumPy): the layout is the same, so each array is copied as it is,
+    in float32."""
+    import torch
+
+    from .models.gnn import SageLayer, SageModel
+    from .utils.device import resolve_device
+
+    device = resolve_device(device)
+
+    def layer(p):
+        return SageLayer(*(torch.tensor(np.asarray(p[name], np.float32),
+                                        device=device)
+                           for name in ("w", "b")))
+
+    return SageModel(layer(params["l1"]), layer(params["l2"]))

@@ -3,7 +3,13 @@
 Same options, results and exact-k rule as the reference.  Every entry point
 scores on the CUDA card unless the caller passes ``device="cpu"`` (which
 runs the kernels' plain versions); without a card, a call that names no
-device raises.
+device raises.  Under a ``mesh`` (``parallel.mesh``) each rank scores its
+block of tiles on ``mesh.device`` and every rank returns the same result.
+
+Before anything is uploaded, :func:`device_bytes` prices what the pass will
+allocate on the device and the call raises ``MemoryError`` when that
+exceeds the device's free memory.  The plan itself is the reference's,
+budgets and all.
 """
 from __future__ import annotations
 
@@ -15,14 +21,15 @@ import numpy as np
 import torch
 
 from ..graph import CSRGraph
-from ..utils.device import resolve_device
+from ..utils.device import free_bytes, resolve_device
 from ..utils.timing import measure_duration
 from .metrics import get_metric
 from .plan import TilePlan, build_plan
-from .scoring import score_huge_sources_host_multi, score_tiles
+from .scoring import _segments, score_huge_sources_host_multi, score_tiles
 
 __all__ = ["PredictOptions", "PredictResult", "predict_links",
-           "predict_links_multi", "top_per_source", "PlanCache"]
+           "predict_links_multi", "top_per_source", "PlanCache",
+           "device_bytes"]
 
 _DEFAULT_MAX_EDGES = 1 << 20
 
@@ -86,12 +93,18 @@ class PlanCache:
         return self._entry(key, g, lambda: build_plan(
             g, min_degree1, cap, sources=sources, device=device))
 
+    def _csr_key(self, g: CSRGraph, device):
+        return ("csr", id(g.offsets), id(g.indices), g.n, g.m, str(device))
+
     def device_graph(self, g: CSRGraph, device="cuda"):
         """``(indices, degrees)`` of ``g`` on ``device``, uploaded once per
         graph and device (only edge-stream passes read them)."""
         device = resolve_device(device)
-        key = ("csr", id(g.offsets), id(g.indices), g.n, g.m, str(device))
-        return self._entry(key, g, lambda: _upload_csr(g, device))
+        return self._entry(self._csr_key(g, device), g,
+                           lambda: _upload_csr(g, device))
+
+    def has_device_graph(self, g: CSRGraph, device) -> bool:
+        return self._csr_key(g, torch.device(device)) in self._cache
 
     def clear(self) -> None:
         self._cache.clear()
@@ -126,6 +139,64 @@ def _pass_kwargs(p: TilePlan) -> dict:
                 packed=p.packed, upper_only=p.upper_only)
 
 
+def device_bytes(g: CSRGraph, passes, num_metrics: int, k: int,
+                 weighted: bool, device, mesh=None,
+                 csr_resident: bool = False) -> dict:
+    """What scoring ``passes`` will allocate on ``device`` beyond what is
+    already there, in bytes, by item:
+
+    * ``stream``: each pass's stream not yet uploaded (under a ``mesh``,
+      this rank's block at its padded width);
+    * ``middeg``: the deg(mid) arrays, when a weighted metric is asked for;
+    * ``csr``: ``indices`` and ``degrees`` for an edge plan, unless
+      ``csr_resident``;
+    * ``selection``: the largest selection buffer of one pass, ``lanes x
+      (4 M + 8)`` B for one segment of ``scoring._segments``;
+    * ``gather``: under a mesh of several ranks, the gathered ``[D, M, k]``
+      buffers and their stack;
+
+    and ``total``.  A tile's own temporaries (its sort of ``cap`` lanes) are
+    not priced."""
+    from ..parallel.mesh import pending_bytes
+
+    need = dict(stream=0, middeg=0, csr=0, selection=0, gather=0)
+    for p in passes:
+        if mesh is None:
+            memo = p._device.get(str(device), {})
+            *arrays, middeg = p.host_stream(weighted)
+            if "stream" not in memo:
+                need["stream"] += sum(a.nbytes for a in arrays)
+            if middeg is not None and "middeg" not in memo:
+                need["middeg"] += middeg.nbytes
+            tiles = p.num_tiles_padded
+        else:
+            stream, middeg, tiles = pending_bytes(p, mesh, weighted)
+            need["stream"] += stream
+            need["middeg"] += middeg
+        if tiles:
+            _, seg = _segments(tiles, p.cap, num_metrics, device)
+            need["selection"] = max(need["selection"],
+                                    seg * p.cap * (4 * num_metrics + 8))
+    if not csr_resident and not all(p.packed for p in passes):
+        h = g.host()
+        need["csr"] = h.indices.nbytes + h.degrees.nbytes
+    if mesh is not None and mesh.size > 1:
+        need["gather"] = 2 * mesh.size * 3 * num_metrics * k * 4
+    need["total"] = sum(need.values())
+    return need
+
+
+def _check_device_memory(need: dict, device) -> None:
+    free = free_bytes(device)
+    if need["total"] > free:
+        parts = ", ".join(f"{name} {b}" for name, b in need.items()
+                          if name != "total")
+        raise MemoryError(
+            f"predict_links: the pass needs {need['total']} B on {device} "
+            f"({parts}) but {free} B are free; nothing was uploaded. Use a "
+            "smaller cap, fewer metrics, or a mesh of more devices")
+
+
 def predict_links_multi(
     g: CSRGraph,
     metrics,
@@ -151,15 +222,26 @@ def predict_links_multi(
     only pairs whose source is in the subset, directed candidates).
     Packed and edge-stream plans both run; hub sources past
     ``HUGE_DEVICE_MAX`` (``plan.host_src``) are scored on the host and
-    their wall time counts in the pass time.  ``mesh`` and ``key64=False``
-    are not ported and raise."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP A10, torch.distributed)")
+    their wall time counts in the pass time.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; the main plan and every sub-plan
+    take the sharded pass (each rank uploads only its block and scans its
+    tiles, one all-gather merges), scoring runs on ``mesh.device`` in
+    place of ``device``, and every rank returns the same result.
+    ``key64=False`` is not ported and raises.  A pass whose device bytes
+    (:func:`device_bytes`) exceed the free memory raises ``MemoryError``
+    before anything is uploaded."""
     if key64 is False:
         raise NotImplementedError(
             "the port keeps one engine, the int64 key; key64=False (the "
             "u32 engine) is not ported (ROADMAP rules)")
+    if mesh is not None:
+        from ..parallel.mesh import Mesh, score_tiles_sharded, shard_stream
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (from "
+                            f"make_mesh), not {type(mesh).__name__}")
+        device = mesh.device
     device = resolve_device(device)
     specs = tuple(get_metric(m) for m in metrics)
     names = tuple(s.name for s in specs)
@@ -181,7 +263,16 @@ def predict_links_multi(
     passes = [plan, *_sub_plans(plan)]
     k = _exact_k(plan, max_edges)
     weighted = any(s.needs_weight for s in specs)
-    streams = [p.device_stream(device, weighted) for p in passes]
+    _check_device_memory(device_bytes(
+        g, passes, len(names), k, weighted, device, mesh,
+        csr_resident=plan_cache is not None
+        and plan_cache.has_device_graph(g, device)), device)
+    if mesh is None:
+        streams = [(p.device_stream(device, weighted), p.tile_start)
+                   for p in passes]
+    else:
+        # each rank uploads only its block; the full stream is never made
+        streams = [shard_stream(p, mesh, weighted) for p in passes]
     indices = degrees = None
     if not all(p.packed for p in passes):
         indices, degrees = (plan_cache.device_graph(g, device)
@@ -189,15 +280,21 @@ def predict_links_multi(
                             else _upload_csr(g, device))
 
     def run_scoring():
-        return [score_tiles(s, p.tile_start, o.min_score, metric_names=names,
-                            k=k, device=device, n=g.n, maxf2=max_factor2,
-                            indices=indices, degrees=degrees,
-                            **_pass_kwargs(p))
-                for p, s in zip(passes, streams)]
+        out = []
+        for p, (stream, tile_start) in zip(passes, streams):
+            kw = dict(metric_names=names, k=k, n=g.n, maxf2=max_factor2,
+                      indices=indices, degrees=degrees, **_pass_kwargs(p))
+            out.append(
+                score_tiles(stream, tile_start, o.min_score, device=device,
+                            **kw) if mesh is None else
+                score_tiles_sharded(stream, tile_start, o.min_score,
+                                    mesh=mesh, **kw))
+        return out
 
     # Mega-hub sources are scored on the host, once, sharing one expansion
-    # across the metrics; their wall time counts in the pass time, as the
-    # reference keeps every source in its timed loop.
+    # across the metrics (on every rank under a mesh); their wall time
+    # counts in the pass time, as the reference keeps every source in its
+    # timed loop.
     host_rows, host_ms = {}, 0.0
     if plan.host_src.size:
         t0 = time.perf_counter()

@@ -190,6 +190,17 @@ class TilePlan:
         input) is uploaded only when ``weighted``; otherwise it is None."""
         device = torch.device(device)
         d = self._device.setdefault(str(device), {})
+        *arrays, middeg = self.host_stream(weighted=True)
+        if "stream" not in d:
+            d["stream"] = tuple(torch.as_tensor(a, device=device)
+                                for a in arrays)
+        if weighted and "middeg" not in d:
+            d["middeg"] = torch.as_tensor(middeg, device=device)
+        return (*d["stream"], d.get("middeg") if weighted else None)
+
+    def host_stream(self, weighted: bool = False):
+        """The host arrays :meth:`device_stream` uploads, in its order:
+        deg(mid) last, None unless ``weighted``."""
         if self.packed:
             arrays = (self.slot_w, self.slot_u, self.slot_udeg,
                       self.slot_wdeg)
@@ -197,12 +208,7 @@ class TilePlan:
         else:
             arrays = (self.fe_work, self.fe_adr, self.fe_usrc)
             middeg = self.fe_middeg
-        if "stream" not in d:
-            d["stream"] = tuple(torch.as_tensor(a, device=device)
-                                for a in arrays)
-        if weighted and "middeg" not in d:
-            d["middeg"] = torch.as_tensor(middeg, device=device)
-        return (*d["stream"], d.get("middeg") if weighted else None)
+        return (*arrays, middeg if weighted else None)
 
 
 def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,

@@ -5,10 +5,12 @@ reference's starting values; they have not been re-derived on a GPU yet.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
-__all__ = ["resolve_device", "device_count", "hbm_bytes", "auto_slot_budget",
-           "auto_seg_lanes"]
+__all__ = ["resolve_device", "device_count", "hbm_bytes", "free_bytes",
+           "auto_slot_budget", "auto_seg_lanes"]
 
 # Budget basis for a CPU device: the reference's 16 GiB default, so a plan
 # built for the CPU equals the reference's CPU plan field for field.
@@ -41,6 +43,20 @@ def hbm_bytes(device) -> int:
         return int(torch.cuda.mem_get_info(device)[1])
     if device.type == "cpu":
         return _DEFAULT_BYTES
+    raise ValueError(f"unsupported device {device}")
+
+
+def free_bytes(device) -> int:
+    """Memory a new allocation on ``device`` can take, in bytes: the card's
+    free memory plus what PyTorch's caching allocator holds unused; for
+    the CPU, the host's free physical pages."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        unused = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
+        return int(torch.cuda.mem_get_info(device)[0]) + int(unused)
+    if device.type == "cpu":
+        return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
     raise ValueError(f"unsupported device {device}")
 
 

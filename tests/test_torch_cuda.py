@@ -761,3 +761,67 @@ def test_host_helpers_on_the_card(rng, cuda):
     deg = np.asarray(g.degrees)
     assert np.array_equal(ok, deg[p[:, 0]] > 0)
     assert all(g.has_edge(a, b) for a, b in p[ok])
+
+
+def test_gnn_on_the_card_matches_cpu(cuda):
+    """The GraphSAGE encoder on the card against the same parameters on
+    the CPU (rtol 1e-5, atol 1e-6: the card's index_add adds in another
+    order), a few training steps on the card, full-graph and sampled, and
+    the GNN predictor's candidate pass through K1."""
+    import copy
+
+    from linkpred_tpu_torch.bench.synth import planted_partition_graph
+    from linkpred_tpu_torch.models import gnn
+
+    g = planted_partition_graph(6, 22, p_in=0.5, p_out=0.01, seed=1)
+    for fanouts in (None, (4, 4)):
+        params, feats, loss = gnn.train_sage(g, steps=5, hidden=16,
+                                             out_dim=8, fanouts=fanouts,
+                                             device=cuda)
+        assert np.isfinite(loss) and params.l1.w.device.type == "cuda"
+    cpu_params = copy.deepcopy(params).to("cpu")
+    embs = []
+    for dev, p in ((cuda, params), (torch.device("cpu"), cpu_params)):
+        esrc, edst, deg, _, _ = gnn._graph_tensors(g, dev)
+        with torch.no_grad():
+            embs.append(gnn.sage_encode(p, torch.as_tensor(feats, device=dev),
+                                        esrc, edst, deg).cpu())
+    torch.testing.assert_close(embs[0], embs[1], rtol=1e-5, atol=1e-6)
+    before = ft.LAUNCHES
+    res = gnn.GNNPredictor(params, feats, device="cuda").predict(
+        g, max_edges=50)
+    assert len(res) == 50 and ft.LAUNCHES > before
+    # a CPU predictor encodes with a copy: the card's model stays put
+    on_cpu = gnn.GNNPredictor(params, feats, device="cpu").predict(
+        g, max_edges=50)
+    assert params.l1.w.device.type == "cuda"
+    np.testing.assert_allclose(on_cpu.score, res.score, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_world_size_1_nccl_pass(rng, cuda, tmp_path):
+    """A one-rank NCCL process group: ``predict_links(mesh=)`` on the card
+    equals the plain pass (the same scores, the same pairs above the
+    k-th score)."""
+    import torch.distributed as dist
+
+    from linkpred_tpu_torch.ops.transform import remove_self_loops, symmetrize
+    from linkpred_tpu_torch.parallel import distributed, mesh as pmesh, sim
+
+    src, dst = rng.integers(0, 300, 1500), rng.integers(0, 300, 1500)
+    g = remove_self_loops(symmetrize(lt.from_edges(src, dst, n=300)))
+    distributed.init_distributed(f"file://{tmp_path}/store", 1, 0,
+                                 backend="nccl")
+    try:
+        m = pmesh.make_mesh(1)
+        assert m.backend == "nccl" and m.device.type == "cuda"
+        for kw in (dict(min_degree1=8), dict(min_degree1=0, cap=1024)):
+            opts = lt.PredictOptions(max_edges=300)
+            got = lt.predict_links_multi(g, ["jaccard", "aa"], mesh=m,
+                                         options=opts, **kw)
+            want = lt.predict_links_multi(g, ["jaccard", "aa"],
+                                          options=opts, device=cuda, **kw)
+            for name in got:
+                sim.same_result(got[name], want[name], name)
+    finally:
+        dist.destroy_process_group()

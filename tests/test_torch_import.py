@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither jax nor the reference package
 (every module, the scoring entry points, ``python -m
 linkpred_tpu_torch`` with its log post-processor, the bench row, the sweep,
-the models, npz files, the profiler helper, the graph builder and the
-small host and device helpers), and its kernel builder
-fails loudly without nvcc."""
+the models and the GraphSAGE family, npz files, the profiler helper, the
+graph builder, the small host and device helpers, a one-rank mesh and two
+rank processes of ``parallel.sim``), and its kernel builder fails loudly
+without nvcc."""
 import os
 import subprocess
 import sys
@@ -123,6 +124,21 @@ try:
     assert table and roofline.device_peak_gbps("cpu") is None
 finally:
     shutil.rmtree(tmp)
+from linkpred_tpu_torch.models import gnn
+from linkpred_tpu_torch.parallel import mesh as pmesh, sim
+params, feats, loss = gnn.train_sage(g, steps=2, hidden=8, out_dim=4,
+                                     fanouts=(2, 2), device="cpu")
+assert np.isfinite(loss) and feats.shape == (40, 8)
+assert len(gnn.GNNPredictor(params, feats, device="cpu").predict(
+    g, max_edges=5)) == 5
+one = lt.predict_links(g, "jaccard", min_degree1=0,
+                       mesh=pmesh.make_mesh(device="cpu"),
+                       options=lt.PredictOptions(max_edges=10))
+assert np.array_equal(one.score, res.score)
+# two rank processes; each fails if it imported jax or the reference
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert sim.main(["2", "--device", "cpu", "--timeout", "240"]) == 0
+assert out.getvalue().count("SIM {") == 2, out.getvalue()
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "linkpred_tpu"))]
 assert not bad, bad

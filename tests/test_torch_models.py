@@ -3,7 +3,8 @@ the same seeded graph: ``HeuristicPredictor``, ``IHub``, ``LHub`` and
 ``all_models`` with ``device="cpu"`` give the JAX predictors' results (the
 same scores, the same pairs above the k-th score; ties at the k-th score
 may pick other pairs) and names with the ``Cuda`` tag in place of ``Tpu``;
-``mesh=`` raises, and the default device raises without a card.
+``mesh=`` takes only a port mesh (a one-rank mesh gives the plain
+result), and the default device raises without a card.
 
 Tolerances as in test_torch_predict.py: unweighted scores bit-equal except
 Salton (rtol 3e-7), AA/RA rtol 1e-5.
@@ -100,14 +101,20 @@ def test_model_defaults_match_reference():
     assert got.pop("device") == "cuda"
     assert got == want
     assert models.IHub().min_degree1 == 0 and models.LHub().min_degree1 == 64
-    assert models.__all__ == ["HeuristicPredictor", "IHub", "LHub",
-                              "all_models"]
+    assert models.__all__ == ref_models.__all__
 
 
 def test_mesh_raises(graphs):
+    """A mesh that is not the port's raises; a one-rank mesh gives the
+    plain result."""
+    from linkpred_tpu_torch.parallel.mesh import make_mesh
+
     port, _ = graphs
-    with pytest.raises(NotImplementedError, match="A10"):
-        models.LHub(device="cpu", cap=CAP).predict(port, mesh=object())
+    p = models.LHub(device="cpu", cap=CAP)
+    with pytest.raises(TypeError, match="Mesh"):
+        p.predict(port, mesh=object())
+    got = p.predict(port, max_edges=K, mesh=make_mesh(device="cpu"))
+    _assert_same_result(got, p.predict(port, max_edges=K), p.metric)
 
 
 def test_default_device_needs_the_card(graphs, monkeypatch):

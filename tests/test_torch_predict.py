@@ -235,11 +235,13 @@ def test_plan_cache_reuses_plans(rng):
 
 
 def test_not_ported_paths_raise(rng, monkeypatch):
-    """``mesh=`` and ``key64=False`` still raise; edge-stream plans and
-    mega-hub sources (``host_src``) now give the reference's results."""
+    """``key64=False`` still raises, and so does a ``mesh=`` that is not
+    the port's (the sharded pass is held in test_torch_parallel.py);
+    edge-stream plans and mega-hub sources (``host_src``) give the
+    reference's results."""
     gr = random_graph(rng, 100, 4)
     gp = _port_graph(gr)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         lt.predict_links(gp, "cn", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="int64 key"):
         lt.predict_links(gp, "cn", key64=False, device="cpu")
