@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of linkpred_tpu_torch on one NVIDIA GPU: builds the CUDA
-kernels, checks each against its plain PyTorch twin, checks the port end to
-end against the CPU and a dense oracle (packed and edge-stream plans,
-serving mode, the mega-hub host scorer), and drives the two main paths at
-the bench protocol:
+kernels, measures the card's launch floor (empty kernels back to back from
+C) and checks P5, the toolchain smoke, against its plain version and numpy
+at the probe's (8, 128), 2^20, 2^26, ragged lengths and a misaligned view,
+timed by the profiler against the floor and (at 2^26) the bytes bound;
+checks each other kernel against its plain PyTorch twin, checks the port
+end to end against the CPU and a dense oracle (packed and edge-stream
+plans, serving mode, the mega-hub host scorer), and drives the two main
+paths at the bench protocol:
 
 * LHub (phase 5): ``predict_links`` Jaccard at deg 64 on RMAT-19, the
   packed slot stream;
@@ -14,12 +18,23 @@ the bench protocol:
   held lane for lane against the formula it replaced (a scatter-max of row
   starts and a cummax over the window), and both are timed.
 
+Phases 5 and 6 also measure the device bytes a lane that one tile
+allocates (``max_memory_allocated`` around it, less what was resident):
+the packed tile at cap 2^21 and 2^23 and the edge tile at cap 2^21 with
+killers, Jaccard and all nine metrics; each must stay at or under
+``predict.api.TILE_BYTES_PER_LANE``, what the memory check prices.
+
 Phase 7 drives the JAX package's sort-feasibility probes as ported: P2 and
 P3 (the bitonic network, ``bitonic.cu``) bit for bit against their plain
 version at every size its launch planner treats differently (2^7, one
 tile, two tiles, 2^18-2^21, 2^23), timed at 2^18-2^23 against
 ``torch.sort``, and the radix probe (``torch.sort``, K2 at ``ratio=1`` as
-a 1-bit split, P4's dynamic stores in ``dynstore.cu``).
+a 1-bit split, P4's dynamic stores in ``dynstore.cu``); P4 against its
+plain version and its banded order at iters 1, 2 and 32 on the probe's
+offsets and on offsets that stress its bands, its device time queued
+behind a sleep and by the profiler (taken in phase 1, where the profiler
+records the card's work), the per-store cost from their difference, and
+the radix arithmetic with that cost.
 
 Phase 8 drives the experiment driver, ``cli.main``, as a user runs it: on
 a planted-partition graph against the same sweep on the CPU (the kernels'
@@ -75,7 +90,11 @@ failure raises, so the run exits non-zero.  With no CUDA device, or without
 the package beside the script, it exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record, and the line before that the card's name and
-power limit.
+power limit.  Each kernel's row has the contract's ``bound_ms`` (the
+larger of its bytes over the memory rate and its operations over the peak
+rate, ``bound_by`` "bytes" or "operations") and beside it
+``launch_floor_ms`` and ``bound_with_launch_ms``: the floor where it
+exceeds that roofline (``bound_with_launch_by`` "launch").
 """
 from __future__ import annotations
 
@@ -84,6 +103,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 
@@ -110,7 +130,8 @@ KERNELS = [
 # its row of the record; the earlier design's times are in PERF.md
 # section 6).  P1 is K1 at the prototype's configuration.
 REDESIGNED_IN = {"pack_survivors": 4, "make_pallas_sort": 4,
-                 "make_sort": 4, "fused_tail": 5, "pallas_tail": 5}
+                 "make_sort": 4, "fused_tail": 5, "pallas_tail": 5,
+                 "dynstore_run": 11, "affine_smoke": 11}
 # The card's memory rate and float32 rate outside the tensor cores
 # (H100 SXM data sheet): the roofline of every kernel here.
 HBM_BYTES_PER_S = 3.35e12
@@ -118,6 +139,7 @@ FP32_OPS_PER_S = 67e12
 UNWEIGHTED = ["common_neighbors", "jaccard_coefficient", "sorensen_index",
               "salton_cosine_similarity", "hub_promoted", "hub_depressed",
               "leicht_holme_nerman"]
+ALL_METRICS = (*UNWEIGHTED, "adamic_adar", "resource_allocation")
 
 
 def check(cond, msg: str) -> None:
@@ -133,14 +155,26 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# The card's launch floor in ms (phase 1 measures it before any bound).
+LAUNCH_FLOOR_MS = None
+
+
 def bound(nbytes: float, ops: float = 0.0):
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the float32 operations over their peak rate.
-    Returns ``dict(bound_ms=..., bound_by="bytes" or "operations")``."""
+    the memory rate and the float32 operations over their peak rate
+    (``bound_ms``, ``bound_by`` "bytes" or "operations"); beside it, the
+    launch floor of phase 1 and ``bound_with_launch_ms``: the floor where
+    it exceeds that roofline (``bound_with_launch_by`` "launch"), else the
+    roofline."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    roof = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    check(LAUNCH_FLOOR_MS is not None, "bound: no launch floor measured")
+    return dict(bound_ms=roof, bound_by=by, launch_floor_ms=LAUNCH_FLOOR_MS,
+                bound_with_launch_ms=max(roof, LAUNCH_FLOOR_MS),
+                bound_with_launch_by="launch" if LAUNCH_FLOOR_MS > roof
+                else by)
 
 
 def tail_bytes(cap: int, wide: bool, n_metrics: int, n_wt: int) -> int:
@@ -199,12 +233,44 @@ def queued_ms(fn, iters: int = 20) -> float:
 
 # ------------------------------------------------------ phase 1: P5 smoke
 
+def kernel_device_ms(fn, part: str) -> float:
+    """Device ms of the launches of one call of ``fn`` whose name holds
+    ``part`` (the profiler, :func:`device_profile`); fails if none ran."""
+    got = {name: ms for name, (_, ms) in device_profile(fn).items()
+           if part in name}
+    check(got, f"the profiler saw no launch named *{part}*")
+    return sum(got.values())
+
+
+def all_device_ms(fn) -> float:
+    """Device ms of every launch of one call of ``fn`` (the profiler)."""
+    return sum(ms for _, ms in device_profile(fn).values())
+
+
+# P5's checked lengths beyond the probe's (8, 128): a power of two, the
+# bytes-bound size, two ragged ones; and the view at element offset 1.
+P5_LENGTHS = (1 << 20, 1 << 26, (1 << 20) + 1, (1 << 20) + 3)
+P5_TIMED = 1 << 26
+P5_HOST_CALLS = 1000
+
+
 def phase_p5(device, rng):
-    """The toolchain smoke right after the build: P5's probe path (its
-    kernel on the probe's (8, 128) shape), then the kernel against its plain
-    version and 2x + 1 in numpy."""
+    """The toolchain smoke right after the build: the card's launch floor
+    (empty kernels back to back from C), P5's probe path (its kernel on the
+    probe's (8, 128) shape), then the kernel against its plain version and
+    2x + 1 in numpy at every length of ``P5_LENGTHS`` and on a view one
+    element into its buffer (not 16-byte aligned); device ms by the
+    profiler at (8, 128) against the floor and at 2^26 against the bytes
+    bound; the wrapper's host us a call; the events' ms of 200 calls."""
     import torch
     from linkpred_tpu_torch.experiments import pallas_smoke as p5
+
+    global LAUNCH_FLOOR_MS
+    floor_us = p5.launch_floor_us(device, 1000)
+    LAUNCH_FLOOR_MS = floor_us / 1e3
+    print(f"  launch floor: {floor_us:.3f} us a launch (1,000 empty kernels "
+          "back to back from C, CUDA events)")
+    check(0 < floor_us < 100, f"launch floor {floor_us} us")
 
     x = torch.arange(1024, dtype=torch.int32, device=device).reshape(8, 128)
     p5.LAUNCHES = 0
@@ -215,16 +281,61 @@ def phase_p5(device, rng):
     check(np.array_equal(out.cpu().numpy(),
                          np.arange(1024, dtype=np.int32).reshape(8, 128) * 2
                          + 1), "P5: kernel != 2x + 1")
-    big = rng.integers(-(1 << 31), 1 << 31, 1 << 20).astype(np.int32)
-    got = p5.affine_smoke(torch.as_tensor(big, device=device)).cpu().numpy()
-    check(np.array_equal(got, (big.astype(np.int64) * 2 + 1).astype(np.int32)),
-          "P5: kernel != 2x + 1 (wrapping) on 2^20 lanes")
-    ms = cuda_ms(lambda: p5.affine_smoke(x), 200)
-    plain = cuda_ms(lambda: p5.affine_smoke_reference(x), 200)
-    print(f"  P5 affine_smoke (8, 128) int32: kernel == plain == 2x + 1; "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
-                **bound(2 * x.numel() * 4, 2 * x.numel()), library_ms=None)
+
+    def wraps(a):
+        return (a.astype(np.int64) * 2 + 1).astype(np.int32)
+
+    for n in P5_LENGTHS + ("view",):
+        m = (1 << 20) + 5 if n == "view" else n
+        host = rng.integers(-(1 << 31), 1 << 31, m).astype(np.int32)
+        buf = torch.as_tensor(host, device=device)
+        xs, want = (buf[1:], wraps(host[1:])) if n == "view" \
+            else (buf, wraps(host))
+        if n == "view":
+            check(xs.data_ptr() % 16 != 0, "P5: the view is 16-byte aligned")
+        got = p5.affine_smoke(xs)
+        plain = p5.affine_smoke_reference(xs)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"P5: kernel != plain at {n}")
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"P5: kernel != 2x + 1 (wrapping) at {n}")
+        del buf, xs, got, plain
+    print(f"  P5: kernel == plain == 2x + 1 at (8, 128), "
+          f"{', '.join(str(n) for n in P5_LENGTHS)} and a view at element "
+          "offset 1")
+
+    ms = kernel_device_ms(lambda: p5.affine_smoke(x), "affine_smoke")
+    plain_ms = all_device_ms(lambda: p5.affine_smoke_reference(x))
+    big = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, P5_TIMED)
+                          .astype(np.int32), device=device)
+    big_ms = kernel_device_ms(lambda: p5.affine_smoke(big), "affine_smoke")
+    big_plain_ms = all_device_ms(lambda: p5.affine_smoke_reference(big))
+    big_bound = bound(8 * P5_TIMED, 2 * P5_TIMED)
+    del big
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P5_HOST_CALLS):
+        p5.affine_smoke(x)
+    host_us = (time.perf_counter() - t0) * 1e6 / P5_HOST_CALLS
+    torch.cuda.synchronize()
+    events_ms = cuda_ms(lambda: p5.affine_smoke(x), 200)
+    plain_events = cuda_ms(lambda: p5.affine_smoke_reference(x), 200)
+    b = bound(2 * x.numel() * 4, 2 * x.numel())
+    print(f"  P5 (8, 128): device {ms * 1e3:.3f} us by the profiler against "
+          f"the launch floor {floor_us:.3f} us (bytes bound "
+          f"{b['bound_ms'] * 1e3:.4f} us); plain {plain_ms * 1e3:.3f} us; "
+          f"the wrapper's host path {host_us:.3f} us a call "
+          f"({P5_HOST_CALLS} calls, no sync); events over 200 calls: kernel "
+          f"{events_ms:.4f} ms, plain {plain_events:.4f} ms")
+    print(f"  P5 2^26 lanes: device {big_ms:.4f} ms by the profiler against "
+          f"the bytes bound {big_bound['bound_ms']:.4f} ms "
+          f"({100 * big_bound['bound_ms'] / big_ms:.1f}% of it); plain "
+          f"{big_plain_ms:.4f} ms")
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                **b, library_ms=None, shape="(8, 128)", events_ms=events_ms,
+                plain_events_ms=plain_events, host_us_per_call=host_us,
+                ms_2e26=big_ms, plain_ms_2e26=big_plain_ms,
+                bound_ms_2e26=big_bound["bound_ms"])
 
 
 # --------------------------------------------------------------- phase 2: K1
@@ -833,6 +944,43 @@ def lhub_pass(device, plan, y, k):
     return tile_fn, one_pass
 
 
+def tile_bytes_a_lane(device, where, p, y, metric_names, indices=None,
+                      degrees=None) -> float:
+    """C11: the device bytes a lane that one tile of pass ``p`` (its
+    fullest) allocates while it runs, beyond what was allocated before it
+    (the stream resident): ``max_memory_allocated`` after a reset, less
+    ``memory_allocated`` before, over cap; after one warm-up call.  Fails
+    if it exceeds ``predict.api.TILE_BYTES_PER_LANE``, the figure the
+    memory check prices."""
+    import torch
+    from linkpred_tpu_torch.predict import api, scoring
+    from linkpred_tpu_torch.predict.metrics import METRICS
+
+    weighted = any(METRICS[m].needs_weight for m in metric_names)
+    tile_fn = scoring.tile_scorer(
+        p.device_stream(device, weighted), metric_names=metric_names,
+        n=y.n, indices=indices, degrees=degrees, **api._pass_kwargs(p))
+    t = int(np.argmax(np.diff(p.tile_start)))
+    s, e = int(p.tile_start[t]), int(p.tile_start[t + 1])
+    tile_fn(s, e)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    out = tile_fn(s, e)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    del out
+    per_lane = (peak - before) / p.cap
+    print(f"  C11 {where}: tile {t} of cap 2^{p.cap.bit_length() - 1}, "
+          f"{len(metric_names)} metric(s): {peak - before} B above the "
+          f"{before} B resident, {per_lane:.3f} B a lane (priced "
+          f"{api.TILE_BYTES_PER_LANE})")
+    check(per_lane <= api.TILE_BYTES_PER_LANE,
+          f"C11 {where}: a tile took {per_lane:.3f} B a lane, over the "
+          f"{api.TILE_BYTES_PER_LANE} that device_bytes prices")
+    return per_lane
+
+
 def phase_main_path(device, scale: int = 19):
     """The LHub main path at RMAT-``scale``.  Returns the K1 and K2
     launches of its run, and (the graph, its tidied deletions, the plan, k)
@@ -894,6 +1042,12 @@ def phase_main_path(device, scale: int = 19):
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms:8.3f} ms  {name[:90]}")
     print_k1_kernels(by_kernel)
+
+    # C11: the packed tile loop at cap 2^21, Jaccard and all nine metrics
+    p21 = build_plan(y, 64, 1 << 21, device=device)
+    for names in (("jaccard_coefficient",), ALL_METRICS):
+        tile_bytes_a_lane(device, f"packed RMAT-{scale} LHub", p21, y, names)
+    del p21
     return launches, (y, deletions, plan, k)
 
 
@@ -1262,6 +1416,14 @@ def phase_ihub(device, scale: int = 18):
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {ms:8.3f} ms  {name[:90]}")
     print_k1_kernels(by_kernel)
+
+    # C11: the packed tile loop at cap 2^23 (the hub sub-plan) and the edge
+    # tile at cap 2^21 with killers, Jaccard and all nine metrics
+    tile_bytes_a_lane(device, f"packed RMAT-{scale} IHub hub sub-plan", hp,
+                      y, ("jaccard_coefficient",))
+    for names in (("jaccard_coefficient",), ALL_METRICS):
+        tile_bytes_a_lane(device, f"edge RMAT-{scale} IHub", plan, y, names,
+                          indices, degrees)
     del indices, degrees
     torch.cuda.empty_cache()
     return launches
@@ -1444,7 +1606,95 @@ def time_bitonic(device, x, pay, rows: int):
     return keys, kv, table
 
 
-def phase_sort_probes(device, rng):
+def p4_stress_offsets():
+    """Offsets built to stress the kernel's bands: {name: int32[256]}."""
+    n = 256
+    edges = np.array([31, 32, 33, 63, 64, 65, 24, 25, 39, 40, 95, 96, 97,
+                      479, 480, 481, 503, 504, 0, 1])
+    return {
+        "all at 0": np.zeros(n),
+        "all at 504": np.full(n, 504),
+        "clamped (-5, 10^6)": np.resize([-5, 10 ** 6, 17, -5, 10 ** 6, 250],
+                                        n),
+        "band edges": np.resize(edges, n),
+    }
+
+
+def p4_device_ms(device):
+    """P4's device ms a call by the profiler at iters 1 and 32 on the
+    probe's inputs: ``{iters: ms}``.  Taken in phase 1: later in the run,
+    after the profiled passes of phases 5 and 6, the profiler recorded no
+    device event for these calls in any session (seen on the card)."""
+    import torch
+    from linkpred_tpu_torch.experiments import radix_probe as rp
+
+    offs, xs = (torch.as_tensor(a, device=device)
+                for a in rp.dynstore_inputs(np.random.default_rng(5)))
+    return {i: kernel_device_ms(lambda: rp.dynstore_run(i, offs, xs),
+                                "dynstore") for i in (1, 32)}
+
+
+def p4_checks(device, radix, dev):
+    """P4 against its plain version (and the banded order it applies the
+    stores in) at iters 1, 2 and 32, on the probe's inputs and on the
+    stress offsets; its grid; device ms queued behind a sleep at iters 1
+    and 32, the per-store us from their difference (the radix probe's) and
+    from that of the profiler's ms ``dev`` (:func:`p4_device_ms`), and the
+    radix arithmetic again with that cost.  Returns P4's row of the record
+    (less its launches)."""
+    import torch
+    from linkpred_tpu_torch.experiments import radix_probe as rp
+    from linkpred_tpu_torch.kernels import _build
+
+    ctas = _build.load().lp_dynstore_ctas()
+    check(ctas >= 128, f"P4: {ctas} CTAs a launch")
+    offs, xs = (torch.as_tensor(a, device=device)
+                for a in rp.dynstore_inputs(np.random.default_rng(5)))
+    sets = {"probe": offs, **{
+        name: torch.as_tensor(o.astype(np.int32), device=device)
+        for name, o in p4_stress_offsets().items()}}
+    for name, o in sets.items():
+        for iters in (1, 2, 32):
+            got = rp.dynstore_run(iters, o, xs)
+            want = rp.dynstore_reference(iters, o, xs)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"P4 {name} iters={iters}: kernel != plain")
+            if iters < 32:
+                check(torch.equal(rp.dynstore_banded(iters, o, xs), want),
+                      f"P4 {name} iters={iters}: banded != plain")
+    got = rp.dynstore_run(1, offs, xs)
+    untouched = int((got == rp.INT32_MIN).all(dim=1).sum())
+    queued = {i: queued_ms(lambda: rp.dynstore_run(i, offs, xs), 20)
+              for i in (1, 32)}
+    per_store_us = (queued[32] - queued[1]) / 31 / rp.NSTORES * 1e3
+    dev_per_store_us = (dev[32] - dev[1]) / 31 / rp.NSTORES * 1e3
+    p4 = dict(ms=dev[32],
+              plain_ms=cuda_ms(lambda: rp.dynstore_reference(32, offs, xs),
+                               2),
+              **bound(4 * (rp.NSTORES + 2 * rp.ROWS * rp.COLS),
+                      32 * rp.NSTORES * rp.BLK * rp.COLS),
+              ms_iters1=dev[1], queued_ms_iters1=queued[1],
+              queued_ms_iters32=queued[32], per_store_us=per_store_us,
+              device_per_store_us=dev_per_store_us, ctas=ctas)
+    print(f"  P4 dynstore (512, 128), 256 stores, {ctas} CTAs: kernel == "
+          f"plain (and the banded order == plain at iters 1, 2) at iters 1, "
+          f"2, 32 on the probe's offsets ({untouched} rows untouched) and on "
+          f"{', '.join(list(sets)[1:])}")
+    print(f"  P4 device ms a call by the profiler: iters 1 {dev[1]:.5f}, "
+          f"iters 32 {dev[32]:.5f}; queued behind a sleep (the fill "
+          f"included): {queued[1]:.5f}, {queued[32]:.5f}; per store "
+          f"{per_store_us:.6f} us queued, {dev_per_store_us:.6f} us by the "
+          f"profiler, {radix['per_store_us']:.6f} us in the probe's own run;"
+          f" plain {p4['plain_ms']:.4f} ms at iters 32; bytes bound "
+          f"{p4['bound_ms'] * 1e3:.4f} us, launch floor "
+          f"{p4['launch_floor_ms'] * 1e3:.3f} us")
+    rp.radix_arithmetic(RADIX_LOG2, radix["sort_ms"], radix["pack_ms"],
+                        per_store_us)
+    return p4
+
+
+def phase_sort_probes(device, rng, p4_dev):
     """The sort-feasibility probes: P2 and P3 (the bitonic kernel) and the
     radix probe (its sort and 1-bit split columns and P4, the dynamic-store
     kernel), each driven through its ``run``/``main`` with the launch
@@ -1471,6 +1721,7 @@ def phase_sort_probes(device, rng):
     print(f"  launches in the probes' paths: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"sort probes: a kernel never launched: {launches}")
+    p4 = p4_checks(device, radix, p4_dev)
 
     timed, per_sort = {}, {}
     for m in CHECK_SIZES:
@@ -1480,26 +1731,6 @@ def phase_sort_probes(device, rng):
         del x, pay
     check(per_sort["2^20"] <= 16,
           f"bitonic: {per_sort['2^20']} grid launches per 2^20 sort")
-
-    # P4 at the probe's shape
-    offs, xs = (torch.as_tensor(a, device=device)
-                for a in rp.dynstore_inputs(np.random.default_rng(5)))
-    for iters in (1, 32):
-        got = rp.dynstore_run(iters, offs, xs)
-        want = rp.dynstore_reference(iters, offs, xs)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"P4 iters={iters}: kernel != plain")
-    untouched = int((got == rp.INT32_MIN).all(dim=1).sum())
-    p4 = dict(ms=cuda_ms(lambda: rp.dynstore_run(32, offs, xs)),
-              plain_ms=cuda_ms(lambda: rp.dynstore_reference(32, offs, xs),
-                               2),
-              **bound(4 * (rp.NSTORES + 2 * rp.ROWS * rp.COLS),
-                      32 * rp.NSTORES * rp.BLK * rp.COLS))
-    print(f"  P4 dynstore (512, 128), 256 stores: kernel == plain at iters 1 "
-          f"and 32 ({untouched} rows untouched); at iters 32 kernel "
-          f"{p4['ms']:.4f} ms, plain {p4['plain_ms']:.4f} ms, bound "
-          f"{p4['bound_ms']:.6f} ms; {radix['per_store_us']:.5f} us per "
-          "store (radix probe)")
 
     # K2 at ratio=1 on the 1-bit split's lanes: every survivor fits
     key = rp.pack_keys(np.random.default_rng(1), 1 << RADIX_LOG2, device) \
@@ -1532,7 +1763,7 @@ def phase_sort_probes(device, rng):
                              launches_per_sort=per_sort))
     p4_row = row(p4, dict(launches=launches["dynstore_run"],
                           shape="iters 32", library_ms=None,
-                          per_store_us=radix["per_store_us"]))
+                          probe_per_store_us=radix["per_store_us"]))
     return p2_row, p3_row, p4_row, launches["pack_survivors"]
 
 
@@ -1568,7 +1799,9 @@ class DriverProbe:
     def __init__(self, device):
         self.device = device
         self.ties, self.counts, self.batch_s, self.mem = [], [], [], []
-        self.plans, self._plan_ids = [], set()
+        # id -> weak reference of each plan seen: a plan freed after its
+        # batch may leave its id to the next batch's plan, which is new
+        self.plans, self._seen = [], {}
         self.read_s = None
         self._saved = []
 
@@ -1627,8 +1860,9 @@ class DriverProbe:
         class Cache(cache):
             def get(self, g, min_degree1, *a, **kw):
                 plan = super().get(g, min_degree1, *a, **kw)
-                if id(plan) not in probe._plan_ids:
-                    probe._plan_ids.add(id(plan))
+                seen = probe._seen.get(id(plan))
+                if seen is None or seen() is not plan:
+                    probe._seen[id(plan)] = weakref.ref(plan)
                     probe.plans.append((min_degree1, nonempty_tiles(plan)))
                 return plan
 
@@ -2819,12 +3053,16 @@ def main() -> int:
               flush=True)
 
     rng = np.random.default_rng(0)
-    phase("phase 1: build, then P5 against its plain version")
+    phase("phase 1: build; the launch floor; P5 against its plain "
+          "version; P4's device time")
     t0 = time.perf_counter()
     _build.load()
     print(f"  kernels built by nvcc from linkpred_tpu_torch/kernels/csrc "
           f"and loaded in {time.perf_counter() - t0:.2f} s")
     p5 = phase_p5(device, rng)
+    p4_dev = p4_device_ms(device)
+    print(f"  P4 device ms a call by the profiler (for phase 7): "
+          f"{p4_dev[1]:.5f} at iters 1, {p4_dev[32]:.5f} at iters 32")
     phase("phase 2: K1 fused_tail against its twin; P1 against xla_tail")
     k1 = phase_k1(device, rng)
     p1 = phase_p1(device, rng)
@@ -2841,7 +3079,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("phase 7: the sort probes P2, P3 (bitonic) and P4 (radix probe); "
           "bitonic at 2^7-2^23")
-    p2, p3, p4, probe_packs = phase_sort_probes(device, rng)
+    p2, p3, p4, probe_packs = phase_sort_probes(device, rng, p4_dev)
     torch.cuda.empty_cache()
     phase("phase 8: the experiment driver (cli.main: card against CPU on a "
           "planted graph; RMAT-18 fused and unfused; python -m "

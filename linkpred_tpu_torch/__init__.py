@@ -38,6 +38,8 @@ from .predict.api import (PlanCache, PredictOptions, PredictResult,
                           predict_links, predict_links_multi, top_per_source)
 from .predict.metrics import METRICS, get_metric
 
+__version__ = "0.1.0"
+
 __all__ = [
     "CSRGraph", "GraphBuilder", "from_edges", "from_dense", "to_dense",
     "edge_list",
@@ -45,4 +47,5 @@ __all__ = [
     "top_per_source", "PlanCache",
     "METRICS", "get_metric",
     "read_mtx", "read_mtx_header", "write_mtx",
+    "__version__",
 ]

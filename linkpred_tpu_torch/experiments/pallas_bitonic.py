@@ -275,9 +275,9 @@ def run(log2n: int = 12, payload: bool = False, device="cuda") -> dict:
     out = {"n": n}
     if timed:
         flat = xt.reshape(-1)
-        out["ms"] = measure_duration(lambda: f(xt), device, 8)[0]
-        out["library_ms"] = measure_duration(lambda: torch.sort(flat),
-                                             device, 8)[0]
+        out["ms"] = measure_duration(lambda: f(xt), 8, device=device)[0]
+        out["library_ms"] = measure_duration(lambda: torch.sort(flat), 8,
+                                             device=device)[0]
         print(f"  bitonic {out['ms']:.4f} ms, torch.sort "
               f"{out['library_ms']:.4f} ms per 2^{log2n} sort")
     if payload:
@@ -296,9 +296,10 @@ def run(log2n: int = 12, payload: bool = False, device="cuda") -> dict:
                 v, idx = torch.sort(flat)
                 return v, pay[idx]
 
-            out["kv_ms"] = measure_duration(lambda: fkv(xt, pt), device,
-                                            8)[0]
-            out["kv_library_ms"] = measure_duration(library, device, 8)[0]
+            out["kv_ms"] = measure_duration(lambda: fkv(xt, pt), 8,
+                                            device=device)[0]
+            out["kv_library_ms"] = measure_duration(library, 8,
+                                                    device=device)[0]
             print(f"  bitonic kv {out['kv_ms']:.4f} ms, torch.sort + gather "
                   f"{out['kv_library_ms']:.4f} ms per 2^{log2n} sort")
     return out

@@ -113,8 +113,8 @@ def run(log2n: int = 12, device="cuda") -> dict:
             v, idx = torch.sort(flat)
             return v, pay[idx]
 
-        out["ms"] = measure_duration(lambda: f(xt, pt), device, 8)[0]
-        out["library_ms"] = measure_duration(library, device, 8)[0]
+        out["ms"] = measure_duration(lambda: f(xt, pt), 8, device=device)[0]
+        out["library_ms"] = measure_duration(library, 8, device=device)[0]
         print(f"  bitonic {out['ms']:.4f} ms, torch.sort + gather "
               f"{out['library_ms']:.4f} ms per 2^{log2n} sort "
               f"({out['ms'] * 1e6 / n:.2f} vs "

@@ -14,13 +14,17 @@ schemes with them against the tile sort they would replace:
 * ``dynstore``: one sequential dynamic-offset store of an 8 x 128 int32
   block into a resident (512, 128) array, the kernel P4 of this module
   (:func:`dynstore_run`, ``kernels/csrc/dynstore.cu``; its plain version
-  :func:`dynstore_reference`).
+  :func:`dynstore_reference`, and :func:`dynstore_banded`, the same stores
+  in the order the kernel applies them).
 
 :func:`bench` times ``make_run(1)`` and ``make_run(iters)`` with CUDA events
-and takes ``(t_n - t_1) / (n - 1)``.  :func:`main` prints the columns and
-the radix arithmetic, with the card's memory rate in place of the v5e's,
-and the card's name and power limit.  Importing this module runs nothing,
-prints nothing and reads no environment:
+and takes ``(t_n - t_1) / (n - 1)``; the store column takes the same
+difference of device times queued behind a sleep (:func:`queued_ms`), since
+one call of the kernel takes less device time than its host path.
+:func:`main` prints the columns and the radix arithmetic
+(:func:`radix_arithmetic`), with the card's memory rate in place of the
+v5e's, and the card's name and power limit.  Importing this module runs
+nothing, prints nothing and reads no environment:
 
     python -m linkpred_tpu_torch.experiments.radix_probe [--lanes-log2 21]
 """
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -35,12 +40,15 @@ import torch
 from ..ops.compact import pack_survivors
 from ..utils.timing import measure_duration
 
-__all__ = ["ROWS", "COLS", "NSTORES", "BLK", "LAUNCHES", "SPLIT_THR",
-           "HBM_BYTES_PER_S", "dynstore_inputs", "dynstore_reference",
-           "dynstore_run", "sort_run", "pack_keys", "pack_run", "bench",
-           "main"]
+__all__ = ["ROWS", "COLS", "NSTORES", "BLK", "BAND", "LAUNCHES",
+           "SPLIT_THR", "HBM_BYTES_PER_S", "dynstore_inputs",
+           "dynstore_reference", "dynstore_banded", "dynstore_run",
+           "sort_run", "pack_keys", "pack_run", "bench", "queued_ms",
+           "radix_arithmetic", "main"]
 
 ROWS, COLS, NSTORES, BLK = 512, 128, 256, 8
+# Rows of a band of the kernel's output (dynstore.cu's kBand).
+BAND = 32
 INT32_MIN = -(1 << 31)
 # The card's memory rate (H100 SXM data sheet), for the radix arithmetic.
 HBM_BYTES_PER_S = 3.35e12
@@ -76,6 +84,29 @@ def dynstore_reference(iters: int, offs, x):
     return out
 
 
+def dynstore_banded(iters: int, offs, x):
+    """:func:`dynstore_reference`'s stores in the order the kernel applies
+    them, in plain PyTorch: band by band of ``BAND`` rows, each band taking
+    the stores that touch it in store order (a store of 8 rows touches at
+    most two bands), and ``iters`` times over that list, each store writing
+    only its rows inside the band.  The same output as the reference: a
+    row's stores are the same stores in the same order.  For the tests and
+    the smoke, never on a path."""
+    out = torch.full((ROWS, COLS), INT32_MIN, dtype=torch.int32,
+                     device=x.device)
+    starts = offs.clamp(0, ROWS - BLK).tolist()
+    for lo in range(0, ROWS, BAND):
+        hi = lo + BAND
+        band = [(i, o) for i, o in enumerate(starts)
+                if o < hi and o + BLK > lo]
+        for _ in range(iters):
+            for i, o in band:
+                r0, r1 = max(o, lo), min(o + BLK, hi)
+                src = (i % (ROWS // BLK)) * BLK - o
+                out[r0:r1] = x[src + r0: src + r1] + i
+    return out
+
+
 def dynstore_run(iters: int, offs, x):
     """P4: the stores of :func:`dynstore_reference` on ``x``'s device.
     ``offs`` int32[256] and ``x`` int32[512, 128] on one device; CPU tensors
@@ -95,6 +126,8 @@ def dynstore_run(iters: int, offs, x):
 
     lib = _build.load()
     offs, x = offs.contiguous(), x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()           # the kernel reads x 16 bytes at a time
     out = torch.full((ROWS, COLS), INT32_MIN, dtype=torch.int32,
                      device=x.device)
     err = lib.lp_dynstore(x.device.index, offs.data_ptr(), x.data_ptr(),
@@ -157,12 +190,66 @@ def bench(name: str, make_run, device, iters: int = 8,
     ``repeat`` calls of ``make_run(...)``'s thunk timed with CUDA events
     after a warm-up."""
     f1, fn = make_run(1), make_run(iters)
-    t1, _ = measure_duration(f1, device, repeat)
-    tn, _ = measure_duration(fn, device, repeat)
+    t1, _ = measure_duration(f1, repeat, device=device)
+    tn, _ = measure_duration(fn, repeat, device=device)
     per = (tn - t1) / (iters - 1)
     print(f"{name:12s} {per:8.4f} ms  (t1 {t1:.4f}, t{iters} {tn:.4f})",
           flush=True)
     return per
+
+
+# A sleep kernel of this many cycles (~25 ms at the H100's clocks) holds
+# the stream while the host issues the calls that queued_ms times.
+SLEEP_CYCLES = 50_000_000
+
+
+def queued_ms(fn, device, repeat: int = 3) -> float:
+    """Mean device milliseconds of ``fn`` over ``repeat`` calls queued
+    behind a sleep kernel (after a warm-up call): the host issues every
+    call while the card sleeps, so the events time the device work back to
+    back and not the host's issue rate.  Raises if the issue outlasted half
+    the sleep's nominal time at 2 GHz."""
+    fn()
+    torch.cuda.synchronize(device)
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    start.record(stream)
+    for _ in range(repeat):
+        fn()
+    end.record(stream)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if issue_ms >= SLEEP_CYCLES / 2e9 * 1e3 / 2:
+        raise RuntimeError(f"queued_ms: issuing {repeat} calls took "
+                           f"{issue_ms:.1f} ms, too long for the sleep")
+    return start.elapsed_time(end) / repeat
+
+
+def radix_arithmetic(log2n: int, sort_ms: float, pack_ms: float,
+                     per_store_us: float, bits: int = 42) -> None:
+    """Prices the two radix schemes over a ``bits``-bit key at ``2^log2n``
+    lanes against the tile sort (``sort_ms``): the shift-routing radix at
+    ``bits`` 1-bit splits of ``pack_ms`` each, and the block-scatter radix
+    at r = 4 and 8 bits a pass over 2^17-lane chunks, each pass one store
+    of ``per_store_us`` a (chunk, bucket) group plus the key and payload
+    read and written once, and prints them."""
+    n = 1 << log2n
+    print(f"\nradix arithmetic at 2^{log2n} lanes, {bits}-bit key:")
+    print(f"  shift-routing radix: {bits} x {pack_ms:.4f} ms = "
+          f"{bits * pack_ms:.3f} ms vs torch.sort {sort_ms:.4f} ms "
+          f"({bits * pack_ms / sort_ms:.1f}x)")
+    for r, chunk in [(4, 1 << 17), (8, 1 << 17)]:
+        passes = -(-bits // r)
+        stores = (n // chunk) * (1 << r)
+        scatter_ms = stores * per_store_us / 1e3
+        hbm_ms = 2 * 12 * n / HBM_BYTES_PER_S * 1e3
+        total = passes * (scatter_ms + hbm_ms)
+        print(f"  block-scatter radix r={r}: {passes} passes x ({stores} "
+              f"stores x {per_store_us:.5f} us + {hbm_ms:.4f} ms HBM) = "
+              f"{total:.4f} ms ({total / sort_ms:.2f}x torch.sort)")
 
 
 def card_line() -> str:
@@ -202,29 +289,15 @@ def main(argv=None) -> dict:
                for v in dynstore_inputs(rng))
     # the store loop's repeats are its own iteration axis: per-store cost
     grid_iters = a.iters * 4
-    t1, _ = measure_duration(lambda: dynstore_run(1, offs, x), device,
-                             a.repeat)
-    tn, _ = measure_duration(lambda: dynstore_run(grid_iters, offs, x),
-                             device, a.repeat)
+    t1 = queued_ms(lambda: dynstore_run(1, offs, x), device, a.repeat)
+    tn = queued_ms(lambda: dynstore_run(grid_iters, offs, x), device,
+                   a.repeat)
     per_grid = (tn - t1) / (grid_iters - 1)
     per_store_us = per_grid / NSTORES * 1e3
     print(f"{'dynstore':12s} {per_store_us:8.5f} us/store (8x128 rows; "
-          f"{per_grid:.5f} ms per 256 stores)", flush=True)
-
-    bits = 42
-    print(f"\nradix arithmetic at 2^{a.lanes_log2} lanes, {bits}-bit key:")
-    print(f"  shift-routing radix: {bits} x {pack_ms:.4f} ms = "
-          f"{bits * pack_ms:.3f} ms vs torch.sort {sort_ms:.4f} ms "
-          f"({bits * pack_ms / sort_ms:.1f}x)")
-    for r, chunk in [(4, 1 << 17), (8, 1 << 17)]:
-        passes = -(-bits // r)
-        stores = (n // chunk) * (1 << r)
-        scatter_ms = stores * per_store_us / 1e3
-        hbm_ms = 2 * 12 * n / HBM_BYTES_PER_S * 1e3
-        total = passes * (scatter_ms + hbm_ms)
-        print(f"  block-scatter radix r={r}: {passes} passes x ({stores} "
-              f"stores x {per_store_us:.5f} us + {hbm_ms:.4f} ms HBM) = "
-              f"{total:.4f} ms ({total / sort_ms:.2f}x torch.sort)")
+          f"{per_grid:.5f} ms per 256 stores; device t1 {t1:.5f}, "
+          f"t{grid_iters} {tn:.5f} ms)", flush=True)
+    radix_arithmetic(a.lanes_log2, sort_ms, pack_ms, per_store_us)
     return dict(sort_ms=sort_ms, pack_ms=pack_ms, per_store_us=per_store_us,
                 per_grid_ms=per_grid)
 

@@ -33,7 +33,7 @@ from ..predict.api import PredictOptions, PredictResult, predict_links
 from ..utils.device import resolve_device
 from .heuristic import HeuristicPredictor
 
-__all__ = ["SageLayer", "SageModel", "sage_init", "sage_encode",
+__all__ = ["SageLayer", "SageModel", "SageParams", "sage_init", "sage_encode",
            "sage_encode_sampled", "sample_neighbors", "sddmm_scores",
            "GNNPredictor", "HybridPredictor", "train_sage"]
 
@@ -59,6 +59,11 @@ class SageModel(nn.Module):
         super().__init__()
         self.l1 = l1
         self.l2 = l2
+
+
+# The reference's name for the parameters in signatures (a dict there);
+# here the parameters are a SageModel.
+SageParams = SageModel
 
 
 def _dense(generator: torch.Generator, din: int, dout: int) -> SageLayer:

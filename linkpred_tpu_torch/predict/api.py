@@ -33,6 +33,18 @@ __all__ = ["PredictOptions", "PredictResult", "predict_links",
 
 _DEFAULT_MAX_EDGES = 1 << 20
 
+# Device bytes a lane that one tile allocates while it runs, beyond the
+# stream already resident: the int64 key and its sort (keys, permutation,
+# the sort's own buffers), the payload gathers, K1's keys, ku, kw and
+# scratch, and the edge tile's slot map and gathers.  chip_smoke.py
+# measures it (max_memory_allocated around one tile, less what was
+# allocated before it, over cap) and fails above this figure.  On an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit (torch 2.11.0+cu128):
+# packed cap 2^21 57.231 B (Jaccard) and 81.031 (all nine metrics),
+# packed cap 2^23 57.250, the IHub edge tile at cap 2^21 with killers
+# 64.231 and 88.031; this is the largest, rounded up.
+TILE_BYTES_PER_LANE = 89
+
 
 @dataclasses.dataclass
 class PredictOptions:
@@ -152,14 +164,16 @@ def device_bytes(g: CSRGraph, passes, num_metrics: int, k: int,
       ``csr_resident``;
     * ``selection``: the largest selection buffer of one pass, ``lanes x
       (4 M + 8)`` B for one segment of ``scoring._segments``;
+    * ``tile``: what one tile allocates while it runs, the largest ``cap``
+      of the passes with tiles (this rank's, under a ``mesh``) x
+      ``TILE_BYTES_PER_LANE``;
     * ``gather``: under a mesh of several ranks, the gathered ``[D, M, k]``
       buffers and their stack;
 
-    and ``total``.  A tile's own temporaries (its sort of ``cap`` lanes) are
-    not priced."""
+    and ``total``."""
     from ..parallel.mesh import pending_bytes
 
-    need = dict(stream=0, middeg=0, csr=0, selection=0, gather=0)
+    need = dict(stream=0, middeg=0, csr=0, selection=0, tile=0, gather=0)
     for p in passes:
         if mesh is None:
             memo = p._device.get(str(device), {})
@@ -177,6 +191,7 @@ def device_bytes(g: CSRGraph, passes, num_metrics: int, k: int,
             _, seg = _segments(tiles, p.cap, num_metrics, device)
             need["selection"] = max(need["selection"],
                                     seg * p.cap * (4 * num_metrics + 8))
+            need["tile"] = max(need["tile"], p.cap * TILE_BYTES_PER_LANE)
     if not csr_resident and not all(p.packed for p in passes):
         h = g.host()
         need["csr"] = h.indices.nbytes + h.degrees.nbytes
@@ -303,7 +318,7 @@ def predict_links_multi(
             k=max_edges, upper_only=plan.upper_only)
         host_ms = (time.perf_counter() - t0) * 1e3
 
-    ts, tops = measure_duration(run_scoring, device, repeat=o.repeat)
+    ts, tops = measure_duration(run_scoring, o.repeat, device=device)
     ts += host_ms
 
     results = {}

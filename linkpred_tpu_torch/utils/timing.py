@@ -1,9 +1,12 @@
 """Repeat-averaged timing (counterpart of ``linkpred_tpu/utils/timing.py``).
 
-Same warm-up and repeat semantics as the reference's ``measure_duration``
-(its one call without the warm-up timed host work, which the port times
-with ``perf_counter`` directly).  On a CUDA device the clock is a pair of CUDA events on the current stream,
-read after a stream sync; on the CPU it is ``time.perf_counter``.
+The reference's signatures and semantics: ``measure_duration(fn, repeat=1,
+warmup=True)`` averages ``repeat`` calls after an optional untimed one, and
+``measure_duration_marked(fn, repeat=1)`` times only what ``fn`` wraps in
+the ``mark`` it is handed.  The port adds ``device=`` (a keyword, default
+the card): on a CUDA device the clock is a pair of CUDA events on the
+current stream, read after a stream sync; on the CPU it is
+``time.perf_counter``.
 """
 from __future__ import annotations
 
@@ -14,29 +17,68 @@ import torch
 
 T = TypeVar("T")
 
-__all__ = ["measure_duration"]
+__all__ = ["measure_duration", "measure_duration_marked"]
 
 
-def measure_duration(fn: Callable[[], T], device,
-                     repeat: int = 1) -> Tuple[float, T]:
-    """Run ``fn`` once untimed (the kernels' first call builds and loads
-    them), then ``repeat`` times on ``device``; return (average
-    milliseconds, last result)."""
-    device = torch.device(device)
+class _Clock:
+    """Milliseconds between ``start()`` and ``stop()`` on ``device``: CUDA
+    events on its current stream, read after a sync, or the host clock."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self.stream = (torch.cuda.current_stream(device)
+                       if device.type == "cuda" else None)
+
+    def start(self) -> None:
+        if self.stream is None:
+            self.t0 = time.perf_counter()
+            return
+        self.begin = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.stream.synchronize()
+        self.begin.record(self.stream)
+
+    def stop(self) -> float:
+        if self.stream is None:
+            return (time.perf_counter() - self.t0) * 1e3
+        self.end.record(self.stream)
+        self.stream.synchronize()
+        return self.begin.elapsed_time(self.end)
+
+
+def measure_duration(fn: Callable[[], T], repeat: int = 1,
+                     warmup: bool = True, *,
+                     device="cuda") -> Tuple[float, T]:
+    """Run ``fn`` once untimed when ``warmup`` (the kernels' first call
+    builds and loads them), then ``repeat`` times on ``device``; return
+    (average milliseconds, last result)."""
     repeat = max(repeat, 1)
-    fn()
-    if device.type == "cuda":
-        stream = torch.cuda.current_stream(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        stream.synchronize()
-        start.record(stream)
-        for _ in range(repeat):
-            result = fn()
-        end.record(stream)
-        stream.synchronize()
-        return start.elapsed_time(end) / repeat, result
-    t0 = time.perf_counter()
+    if warmup:
+        fn()
+    clock = _Clock(device)
+    clock.start()
     for _ in range(repeat):
         result = fn()
-    return (time.perf_counter() - t0) * 1e3 / repeat, result
+    return clock.stop() / repeat, result
+
+
+def measure_duration_marked(fn: Callable[[Callable], T], repeat: int = 1, *,
+                            device="cuda") -> Tuple[float, T]:
+    """Time only the sub-sections that ``fn`` wraps in the ``mark`` it is
+    handed (``mark(f)`` runs ``f()`` on the clock and returns its result),
+    ``repeat`` times; return (average marked milliseconds a call, last
+    result)."""
+    clock = _Clock(device)
+    acc = 0.0
+    result = None
+
+    def mark(f):
+        nonlocal acc
+        clock.start()
+        r = f()
+        acc += clock.stop()
+        return r
+
+    for _ in range(max(repeat, 1)):
+        result = fn(mark)
+    return acc / max(repeat, 1), result

@@ -398,6 +398,30 @@ def test_p5_kernel(cuda):
     assert torch.equal(got, pallas_smoke.affine_smoke_reference(x))
 
 
+@pytest.mark.parametrize("n,shift", [
+    ((1 << 20) + 1, 0),     # n % 4 == 1: the scalar tail
+    ((1 << 20) + 3, 0),     # n % 4 == 3
+    (1 << 20, 1),           # a view one element in: not 16-byte aligned
+    (7, 1),                 # shorter than one int4 word
+])
+def test_p5_kernel_ragged_and_misaligned(rng, cuda, n, shift):
+    host = rng.integers(-(1 << 31), 1 << 31, n + shift).astype(np.int32)
+    buf = torch.as_tensor(host, device=cuda)
+    x = buf[shift:]
+    assert (x.data_ptr() % 16 != 0) == bool(shift)
+    before = pallas_smoke.LAUNCHES
+    got = pallas_smoke.affine_smoke(x)
+    assert pallas_smoke.LAUNCHES == before + 1
+    assert torch.equal(got, pallas_smoke.affine_smoke_reference(x))
+    want = (host[shift:].astype(np.int64) * 2 + 1).astype(np.int32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_launch_floor(cuda):
+    us = pallas_smoke.launch_floor_us(cuda, 200)
+    assert 0 < us < 100
+
+
 @pytest.mark.parametrize("log2n,dist", [
     (7, "full"),        # one CTA of four threads, below one tile
     (12, "full"),       # one CTA, below one tile
@@ -492,7 +516,42 @@ def test_bitonic_kernel_refuses_bad_operands(cuda):
         f(torch.zeros((8, 128), dtype=torch.int64, device=cuda))
 
 
-@pytest.mark.parametrize("iters", [1, 5])
+_P4_STRESS = {
+    "all at 0": [0] * 256,
+    "all at 504": [504] * 256,
+    "clamped": [-5, 10 ** 6, 17, -5, 10 ** 6, 250] * 42 + [-5] * 4,
+    "band edges": [31, 32, 33, 63, 64, 65, 24, 25, 39, 40, 95, 96, 97, 479,
+                   480, 481, 503, 504, 0, 1] * 12 + [31] * 16,
+}
+
+
+@pytest.mark.parametrize("iters", [1, 2, 32])
+@pytest.mark.parametrize("name", list(_P4_STRESS))
+def test_dynstore_kernel_stress_offsets(cuda, name, iters):
+    """Offsets that pile every store on one band, move under the clamp,
+    or straddle the kernel's band edges."""
+    offs = torch.tensor(_P4_STRESS[name], dtype=torch.int32, device=cuda)
+    assert offs.numel() == radix_probe.NSTORES
+    _, x = radix_probe.dynstore_inputs(np.random.default_rng(5))
+    x = torch.as_tensor(x, device=cuda)
+    before = radix_probe.LAUNCHES
+    got = radix_probe.dynstore_run(iters, offs, x)
+    assert radix_probe.LAUNCHES == before + 1
+    assert torch.equal(got, radix_probe.dynstore_reference(iters, offs, x))
+
+
+def test_dynstore_kernel_misaligned_x(cuda):
+    offs, x = (torch.as_tensor(a, device=cuda) for a in
+               radix_probe.dynstore_inputs(np.random.default_rng(5)))
+    buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(radix_probe.dynstore_run(2, offs, view),
+                       radix_probe.dynstore_reference(2, offs, x))
+
+
+@pytest.mark.parametrize("iters", [1, 2, 5, 32])
 def test_dynstore_kernel_vs_plain(cuda, iters):
     offs, x = (torch.as_tensor(a, device=cuda) for a in
                radix_probe.dynstore_inputs(np.random.default_rng(5)))

@@ -85,3 +85,19 @@ def test_p5_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         pallas_smoke.affine_smoke(torch.zeros(4, dtype=torch.int32,
                                               device="meta"))
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 7, 1 << 12, (1 << 12) + 3])
+def test_p5_plain_version_ragged_and_views(rng, n, shift):
+    """The lengths and the offset view that the kernel's scalar paths
+    take, on the plain version (the CPU path)."""
+    host = rng.integers(-(1 << 31), 1 << 31, n + shift).astype(np.int32)
+    got = pallas_smoke.affine_smoke(torch.as_tensor(host)[shift:])
+    want = (host[shift:].astype(np.int64) * 2 + 1).astype(np.int32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_launch_floor_needs_a_card():
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        pallas_smoke.launch_floor_us("cpu")

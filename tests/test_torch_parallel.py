@@ -469,8 +469,10 @@ def test_memory_check_prices_what_the_pass_uploads(rng):
     stream = sum(a.nbytes for q in passes for a in q.host_stream(True)[:-1])
     middeg = sum(q.host_stream(True)[-1].nbytes for q in passes)
     seg = max(q.num_tiles_padded * q.cap * (4 * 2 + 8) for q in passes)
+    tile = max(q.cap for q in passes) * api.TILE_BYTES_PER_LANE
     assert need == dict(stream=stream, middeg=middeg, csr=0, selection=seg,
-                        gather=0, total=stream + middeg + seg)
+                        tile=tile, gather=0,
+                        total=stream + middeg + seg + tile)
     # what is already on the device is not priced again
     for q in passes:
         q.device_stream("cpu", weighted=True)
@@ -498,6 +500,58 @@ def test_memory_check_prices_only_this_ranks_block(rng):
         if lay.tiles(r):
             _, seg = scoring_segments(lay.tiles(r), p.cap)
             assert need["selection"] == seg * p.cap * 12
+        # each rank runs its own tiles, so each prices one
+        assert need["tile"] == (p.cap * api.TILE_BYTES_PER_LANE
+                                if lay.tiles(r) else 0)
+
+
+# ------------------------------------- C11: a tile's temporaries are priced
+
+def test_memory_check_prices_a_tile_by_its_cap(rng):
+    """The ``tile`` item is the largest cap of the passes x the bytes a
+    lane measured on the card; it doubles when the cap doubles."""
+    gp = _port_graph(random_graph(rng, 200, 6))
+    got = {}
+    for cap in (1024, 2048):
+        p = plan.build_plan(gp, 0, cap, device="cpu")
+        need = api.device_bytes(gp, [p, *api._sub_plans(p)], 1, 1024, False,
+                                "cpu")
+        got[cap] = need["tile"]
+        assert need["tile"] == cap * api.TILE_BYTES_PER_LANE > 0
+        assert need["total"] == sum(v for n, v in need.items()
+                                    if n != "total")
+    assert got[2048] == 2 * got[1024]
+
+
+def test_memory_check_prices_a_tile_under_a_two_rank_mesh(rng):
+    gp = _port_graph(random_graph(rng, 300, 7))
+    p = plan.build_plan(gp, 0, 1024, device="cpu")
+    lay = pmesh.shard_layout(p, 2)
+    assert lay.tiles(0) and lay.tiles(1), "test premise: both ranks score"
+    for r in range(2):
+        mesh = pmesh.Mesh(group=None, device=torch.device("cpu"), rank=r,
+                          size=2)
+        need = api.device_bytes(gp, [p], 1, 1024, False, "cpu", mesh)
+        assert need["tile"] == 1024 * api.TILE_BYTES_PER_LANE
+
+
+def test_memory_error_names_the_tile(rng, monkeypatch):
+    """A budget one byte under the priced total refuses the pass, and the
+    message names the tile item with its bytes; at the total it runs."""
+    gp = _port_graph(random_graph(rng, 200, 6))
+    p = plan.build_plan(gp, 0, 1024, device="cpu")
+    passes = [p, *api._sub_plans(p)]
+    need = api.device_bytes(gp, passes, 1, api._exact_k(p, 50), False, "cpu")
+    monkeypatch.setattr(api, "free_bytes", lambda d: need["total"] - 1)
+    with pytest.raises(MemoryError, match=rf"tile {need['tile']}\b"):
+        lt.predict_links(gp, "jaccard", min_degree1=0, plan=p, device="cpu",
+                         options=lt.PredictOptions(max_edges=50))
+    assert p._device == {}, "uploaded before the check"
+    monkeypatch.setattr(api, "free_bytes", lambda d: need["total"])
+    res = lt.predict_links(gp, "jaccard", min_degree1=0, plan=p,
+                           device="cpu",
+                           options=lt.PredictOptions(max_edges=50))
+    assert len(res) > 0
 
 
 def scoring_segments(tiles, cap):

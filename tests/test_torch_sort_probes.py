@@ -9,7 +9,10 @@ rule (each lane keeps its own payload on equal keys).  The kernel's launch
 planner: its rows cover the stage table once, in order; replayed launch by
 launch, each CTA's lanes alone, they give the plain network bit for bit;
 tables out of the network's order raise.  P4: whole (512, 128)
-arrays equal, untouched rows included.  K2: the plain version's survivors
+arrays equal, untouched rows included; the order the kernel applies the
+stores in (band by band, ``radix_probe.dynstore_banded``) gives the same
+arrays on the probe's offsets and on offsets that hypothesis draws, inside
+and outside the clamp's [0, 504].  K2: the plain version's survivors
 equal the concatenated live lanes of the JAX pack at a shrunk chunk.  The
 kernels themselves run in test_torch_cuda.py.
 """
@@ -20,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from linkpred_tpu.ops import compact as ref_compact
 from linkpred_tpu_torch.experiments import (pallas_bitonic, pallas_bitonic2,
@@ -291,6 +296,52 @@ def test_p4_vs_jax_probe(jax_radix, iters):
     np.testing.assert_array_equal(got.numpy(), want)
     untouched = (want == np.iinfo(np.int32).min).all(axis=1)
     assert untouched.any() and not untouched.all(), "test premise"
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+def test_p4_banded_order_vs_jax_probe(jax_radix, iters):
+    """The kernel's order of the stores, band by band, gives the JAX
+    probe's array and the plain version's."""
+    jax_radix.rng = np.random.default_rng(5)
+    want = np.asarray(jax_radix.dynstore_run(iters)())
+    offs, x = (torch.as_tensor(a) for a in
+               radix_probe.dynstore_inputs(np.random.default_rng(5)))
+    got = radix_probe.dynstore_banded(iters, offs, x)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, radix_probe.dynstore_reference(iters, offs, x))
+
+
+_P4_X = torch.as_tensor(np.random.default_rng(9).integers(
+    -(1 << 31), 1 << 31, (radix_probe.ROWS, radix_probe.COLS),
+    dtype=np.int64).astype(np.int32))
+
+
+@settings(max_examples=25, deadline=None, database=None)
+@given(offs=st.lists(st.one_of(st.integers(-40, 560),
+                               st.sampled_from([0, 31, 32, 33, 63, 64, 504,
+                                                -5, 10 ** 6, -(1 << 31),
+                                                (1 << 31) - 1])),
+                     min_size=256, max_size=256),
+       iters=st.sampled_from([1, 2]))
+def test_p4_banded_order_on_drawn_offsets(offs, iters):
+    """Offsets anywhere in int32 (the clamp moves those outside [0, 504]),
+    runs across band edges, ties: band by band equals store by store, and
+    full-range x shows the wrapping add."""
+    o = torch.tensor(offs, dtype=torch.int32)
+    assert torch.equal(radix_probe.dynstore_banded(iters, o, _P4_X),
+                       radix_probe.dynstore_reference(iters, o, _P4_X))
+
+
+def test_p4_banded_bands_are_the_kernels():
+    """Every store lands in one or two bands of ``BAND`` rows; the probe's
+    offsets give ~20 stores a band."""
+    offs, _ = radix_probe.dynstore_inputs(np.random.default_rng(5))
+    band = radix_probe.BAND
+    counts = [sum(1 for o in offs if o < lo + band and o + radix_probe.BLK
+                  > lo) for lo in range(0, radix_probe.ROWS, band)]
+    assert radix_probe.ROWS % band == 0
+    assert sum(counts) <= 2 * radix_probe.NSTORES
+    assert 10 <= np.mean(counts) <= 30, counts
 
 
 def test_p4_clamps_offsets_like_a_dynamic_slice():
