@@ -78,13 +78,29 @@ steps of each with their ms a step, then ``GNNPredictor`` and
 ``HybridPredictor`` on LHub Jaccard deg 64 candidates at k = the removed
 edges, their recall beside the heuristic's.
 
+Phase 13 drives the port-side examples and scripts as a user runs them:
+(a) ``examples/serving/run_torch.py`` (three requests, one cached plan,
+the last request against the CPU); (b) ``examples/ihub_vs_lhub/
+run_torch.py`` at RMAT 14-15 (cut from its default 14-16), both
+fractions, each leg's plan ms and stream beside its scoring ms, IHub and
+LHub at RMAT-14 against the CPU;
+(c) ``examples/multihost_sim/run_torch.py`` with two rank processes on
+the card; (d) ``scripts/bench_table_torch.py 18 19``, a fresh bench
+process a row; (e) ``scripts/verify_torch.py``, the dense oracle.
+
     python3 chip_smoke.py [scale]
     python3 chip_smoke.py --k1-ab OTHER_TREE
+    python3 chip_smoke.py --ihub-lhub OUT_DIR CPU_SCALE SCALE...
+    python3 chip_smoke.py --sweep-vs-tpu OUT_DIR TPU_CSV SWEEP_ARGS...
 
 ``scale`` (default 19) sets the R-MAT scale of the LHub path.  With
 ``--k1-ab`` it only times K1 at the main paths' shapes, in this tree and in
 another checkout of the repository (such as the parent commit unpacked by
-``git archive``), in turns.  Run from the
+``git archive``), in turns.  With ``--ihub-lhub`` it runs only phase 13
+(b) at the given scales into ``OUT_DIR``, the CPU check at ``CPU_SCALE``
+(fraction 0.1).  With ``--sweep-vs-tpu`` it runs ``python -m
+linkpred_tpu_torch.bench.sweep SWEEP_ARGS`` into ``OUT_DIR`` and holds its
+rows against the TPU sweep's CSV (``sweep_vs_tpu``).  Run from the
 root of the repository.  Every phase prints its lines and any
 failure raises, so the run exits non-zero.  With no CUDA device, or without
 the package beside the script, it exits non-zero and prints no result.
@@ -304,12 +320,24 @@ def phase_p5(device, rng):
           f"{', '.join(str(n) for n in P5_LENGTHS)} and a view at element "
           "offset 1")
 
+    # the library's one call for int32 2x + 1: 1 + 2 * x
+    one = torch.ones((), dtype=torch.int32, device=device)
+
+    def library(t):
+        return torch.add(one, t, alpha=2)
+
+    check(torch.equal(library(x), out), "P5: torch.add(1, x, alpha=2) != "
+          "kernel at (8, 128)")
     ms = kernel_device_ms(lambda: p5.affine_smoke(x), "affine_smoke")
     plain_ms = all_device_ms(lambda: p5.affine_smoke_reference(x))
+    library_ms = all_device_ms(lambda: library(x))
     big = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, P5_TIMED)
                           .astype(np.int32), device=device)
+    check(torch.equal(library(big), p5.affine_smoke(big)),
+          "P5: torch.add(1, x, alpha=2) != kernel at 2^26")
     big_ms = kernel_device_ms(lambda: p5.affine_smoke(big), "affine_smoke")
     big_plain_ms = all_device_ms(lambda: p5.affine_smoke_reference(big))
+    big_library_ms = all_device_ms(lambda: library(big))
     big_bound = bound(8 * P5_TIMED, 2 * P5_TIMED)
     del big
     torch.cuda.synchronize()
@@ -324,17 +352,21 @@ def phase_p5(device, rng):
     print(f"  P5 (8, 128): device {ms * 1e3:.3f} us by the profiler against "
           f"the launch floor {floor_us:.3f} us (bytes bound "
           f"{b['bound_ms'] * 1e3:.4f} us); plain {plain_ms * 1e3:.3f} us; "
+          f"library (torch.add(1, x, alpha=2)) {library_ms * 1e3:.3f} us; "
           f"the wrapper's host path {host_us:.3f} us a call "
           f"({P5_HOST_CALLS} calls, no sync); events over 200 calls: kernel "
           f"{events_ms:.4f} ms, plain {plain_events:.4f} ms")
     print(f"  P5 2^26 lanes: device {big_ms:.4f} ms by the profiler against "
           f"the bytes bound {big_bound['bound_ms']:.4f} ms "
           f"({100 * big_bound['bound_ms'] / big_ms:.1f}% of it); plain "
-          f"{big_plain_ms:.4f} ms")
+          f"{big_plain_ms:.4f} ms; library {big_library_ms:.4f} ms")
     return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                **b, library_ms=None, shape="(8, 128)", events_ms=events_ms,
-                plain_events_ms=plain_events, host_us_per_call=host_us,
-                ms_2e26=big_ms, plain_ms_2e26=big_plain_ms,
+                **b, library_ms=library_ms,
+                library_call="torch.add(one, x, alpha=2)", shape="(8, 128)",
+                events_ms=events_ms, plain_events_ms=plain_events,
+                host_us_per_call=host_us, ms_2e26=big_ms,
+                plain_ms_2e26=big_plain_ms,
+                library_ms_2e26=big_library_ms,
                 bound_ms_2e26=big_bound["bound_ms"])
 
 
@@ -2089,17 +2121,22 @@ def phase_driver_rmat(device, tmp, scale: int = 18):
     return launches
 
 
-def run_module(argv, env=None, timeout: int = 600):
-    """``python -m argv...`` from the repository's root as a subprocess;
-    it must exit 0.  Returns (its standard output, wall seconds)."""
+def run_file(argv, env=None, timeout: int = 600):
+    """``python argv...`` from the repository's root as a subprocess; it
+    must exit 0.  Returns (its standard output, wall seconds)."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", *argv], cwd=here, env=env,
+    r = subprocess.run([sys.executable, *argv], cwd=here, env=env,
                        capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"python -m {' '.join(argv)}: rc "
-          f"{r.returncode}: {r.stderr[-3000:]}")
+    check(r.returncode == 0, f"python {' '.join(argv)}: rc {r.returncode}: "
+          f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
     return r.stdout, wall
+
+
+def run_module(argv, env=None, timeout: int = 600):
+    """``python -m argv...``, as :func:`run_file`."""
+    return run_file(["-m", *argv], env, timeout)
 
 
 def phase_driver_subprocess(path):
@@ -3001,6 +3038,287 @@ def phase_gnn(device, main_path):
     return launches
 
 
+# ------------------------------------------ phase 13: the examples on the card
+
+# Part (b): the example's scales, cut from its default 14-16 to keep the
+# phase inside its budget (RMAT-16's two IHub plans take ~45 s on the card's
+# host), and the (scale, fraction) held against the CPU: the largest scale
+# whose CPU legs stay under 30 s on the card's host (RMAT-15's took 24.6
+# and 37.4 s in two runs; PERF.md section 6).  Part (d)'s scales.  The
+# phase's budget in seconds of the smoke.
+EXAMPLE_SCALES = (14, 15)
+EXAMPLE_CPU_CHECK = (14, 0.1)
+TABLE_SCALES = (18, 19)
+EXAMPLES_BUDGET_S = 180
+
+
+def load_file(rel: str, name: str):
+    """A file of the repository loaded as a module (the examples and the
+    scripts are files, not packages)."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(here, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def plan_path(p) -> str:
+    """The stream a plan scores on, with its sub-plans."""
+    out = (f"{'packed' if p.packed else 'edge'} cap {p.cap}, {p.num_tiles} "
+           f"tiles, {p.total_slots} slots")
+    for name, sub in (("hub", p.huge_plan), ("side", p.side_plan)):
+        if sub is not None:
+            out += f" + {name} sub-plan ({plan_path(sub)})"
+    if p.host_src.size:
+        out += f" + {p.host_src.size} host-scored hubs"
+    return out
+
+
+class PlanTimer:
+    """While entered, ``predict.api.build_plan`` (the plan that
+    ``predict_links`` builds when given none) is timed: ``ms`` holds each
+    call's host milliseconds, ``paths`` each plan's :func:`plan_path`."""
+
+    def __enter__(self):
+        from linkpred_tpu_torch.predict import api
+
+        self.api, self.real, self.ms, self.paths = api, api.build_plan, [], []
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            p = self.real(*args, **kwargs)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.paths.append(plan_path(p))
+            return p
+
+        api.build_plan = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.api.build_plan = self.real
+
+
+def phase_examples_serving(device):
+    """Part (a): ``examples/serving/run_torch.py`` at its default size on
+    the card: one plan for the three requests; the last request's rows
+    equal a ``device="cpu"`` run's up to ties at the k-th score (AA at
+    rtol 1e-5, C7)."""
+    import linkpred_tpu_torch as lt
+
+    mod = load_file("examples/serving/run_torch.py", "serving_torch")
+    with PlanTimer() as plans:
+        got = mod.main(device=device)
+    check(len(plans.ms) == 1, f"serving (a): {len(plans.ms)} plans built "
+          "for three requests of one user set")
+    want = mod.main(device="cpu")[-1]
+    same_result(got[-1], want, lt.METRICS["adamic_adar"],
+                "serving (a) last request")
+    print(f"  (a) serving: 3 requests, 1 plan ({plans.ms[0]:.1f} ms); "
+          f"scoring_ms {', '.join(f'{r.scoring_ms:.3f}' for r in got)}; "
+          f"request 2's {len(got[-1])} rows == the CPU run's")
+
+
+def phase_examples_ihub_lhub(device, out_dir, scales=None, cpu_check=None):
+    """Part (b): ``examples/ihub_vs_lhub/run_torch.py`` at ``scales``
+    (``EXAMPLE_SCALES``), both fractions, ``repeat=3``, into ``out_dir``:
+    each row's scoring ms, speedup, F1s, and each leg's plan ms and stream;
+    then IHub and LHub at ``cpu_check`` (``EXAMPLE_CPU_CHECK``: scale,
+    fraction) on the card against the CPU."""
+    import linkpred_tpu_torch as lt
+    from linkpred_tpu_torch.bench.synth import rmat_graph
+
+    scales = EXAMPLE_SCALES if scales is None else scales
+    cpu_check = EXAMPLE_CPU_CHECK if cpu_check is None else cpu_check
+
+    mod = load_file("examples/ihub_vs_lhub/run_torch.py", "ihub_lhub_torch")
+    with PlanTimer() as plans:
+        rows = mod.main(tuple(scales), device=device, out_dir=out_dir)
+    check(len(rows) == 2 * len(scales) and len(plans.ms) == 2 * len(rows),
+          f"ihub_vs_lhub (b): {len(rows)} rows, {len(plans.ms)} plans")
+    check(sorted(os.listdir(out_dir)) == ["speedup_cuda.csv",
+                                          "speedup_cuda.md"],
+          f"ihub_vs_lhub (b): wrote {os.listdir(out_dir)}")
+    for i, r in enumerate(rows):
+        check(r["ihub_ms"] > 0 and r["lhub_ms"] > 0
+              and 0 <= r["ihub_f1"] <= 1 and 0 <= r["lhub_f1"] <= 1,
+              f"ihub_vs_lhub (b): row {r}")
+        print(f"  (b) s{r['scale']} frac {r['fraction']} (|E| "
+              f"{r['m_directed']}): IHub {r['ihub_ms']} ms scoring, plan "
+              f"{plans.ms[2 * i]:.1f} ms; LHub {r['lhub_ms']} ms, plan "
+              f"{plans.ms[2 * i + 1]:.1f} ms; speedup {r['speedup']}x; F1 "
+              f"{r['ihub_f1']} / {r['lhub_f1']}")
+        print(f"      IHub {plans.paths[2 * i]}; LHub "
+              f"{plans.paths[2 * i + 1]}")
+    scale, frac = cpu_check
+    y, dels = mod.removal_batch(rmat_graph(scale, edge_factor=16, seed=42),
+                                frac)
+    spec = lt.METRICS[mod.METRIC]
+    opts = lt.PredictOptions(max_edges=max(dels.shape[0] // 2, 1))
+    for d1 in (0, mod.HUB_DEG):
+        card = lt.predict_links(y, spec.name, min_degree1=d1, options=opts,
+                                device=device)
+        t0 = time.perf_counter()
+        cpu = lt.predict_links(y, spec.name, min_degree1=d1, options=opts,
+                               device="cpu")
+        cpu_s = time.perf_counter() - t0
+        same_result(card, cpu, spec, f"ihub_vs_lhub (b) s{scale} frac "
+                    f"{frac} d1 {d1}")
+        print(f"  (b) s{scale} frac {frac} {'IHub' if d1 == 0 else 'LHub'}: "
+              f"{len(card)} rows == the CPU run's (CPU leg {cpu_s:.1f} s)")
+
+
+def phase_examples_subprocesses(main_path, scale, tmp):
+    """Parts (c) and (d): the multi-process example with two ranks on the
+    card, and the scale table at ``TABLE_SCALES``, a fresh bench process a
+    row, its cache seeded with phase 5's graph where phase 5 ran one of
+    those scales."""
+    from linkpred_tpu_torch.bench import run
+
+    out, wall = run_file(["examples/multihost_sim/run_torch.py", "2",
+                          "--timeout", "300"], timeout=400)
+    ok = [line for line in out.splitlines() if "multihost_sim OK" in line]
+    check(len(ok) == 1 and "sim: OK, 2 ranks" in out,
+          f"multihost (c): {out[-2000:]}")
+    print(f"  (c) {ok[0].strip()}; rc 0 in {wall:.1f} s")
+
+    y, deletions, _, _ = main_path
+    cache = os.path.join(tmp, "table_cache")
+    if scale in TABLE_SCALES:
+        run.write_cache(cache, scale, y, deletions)
+    out, wall = run_file(["scripts/bench_table_torch.py",
+                          *map(str, TABLE_SCALES)],
+                         env=bench_env(BENCH_CACHE_DIR=cache), timeout=900)
+    lines = out.strip().splitlines()
+    check([line.split(":")[0] for line in lines[:len(TABLE_SCALES)]]
+          == [f"s{s}" for s in TABLE_SCALES]
+          and "| graph | rate | vs reference headline |" in lines
+          and not any("FAILED" in line for line in lines),
+          f"bench table (d): {out[-2000:]}")
+    seeded = (f"RMAT-{scale} read from phase 5's graph"
+              if scale in TABLE_SCALES else "every graph made")
+    print(f"  (d) scripts/bench_table_torch.py "
+          f"{' '.join(map(str, TABLE_SCALES))}: rc 0 in {wall:.1f} s "
+          f"({seeded}):")
+    for line in lines:
+        print("    " + line)
+
+
+def phase_examples(device, main_path, scale):
+    """Phase 13, parts (a)-(e): the port-side examples and scripts on the
+    card (``scale``: phase 5's).  Returns the K1 and K2 launches of the
+    parts run in this process ((a), (b) and (e))."""
+    import contextlib
+    import io
+    import tempfile
+
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+
+    t_start = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ft.LAUNCHES = compact.LAUNCHES = 0
+        t0 = time.perf_counter()
+        phase_examples_serving(device)
+        times["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_examples_ihub_lhub(device, os.path.join(tmp, "speedup"))
+        times["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verify = load_file("scripts/verify_torch.py", "verify_torch")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            check(verify.main([]) == 0, "verify (e): rc")
+        launches = {"fused_tail": ft.LAUNCHES,
+                    "pack_survivors": compact.LAUNCHES}
+        lines = out.getvalue().strip().splitlines()
+        check(len(lines) == 3 and lines[0].startswith("device: cuda")
+              and lines[1].startswith("OK: jaccard")
+              and lines[2].startswith("OK: adamic_adar"),
+              f"verify (e): {lines}")
+        for line in lines:
+            print("  (e) " + line)
+        times["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_examples_subprocesses(main_path, scale, tmp)
+        times["c+d"] = time.perf_counter() - t0
+    check(all(v > 0 for v in launches.values()),
+          f"examples: a kernel never launched: {launches}")
+    total = time.perf_counter() - t_start
+    parts = ", ".join(f"({k}) {v:.1f} s" for k, v in times.items())
+    print(f"  phase 13 parts: {parts}; {total:.1f} s of its "
+          f"{EXAMPLES_BUDGET_S} s budget; launches in this process "
+          f"{launches}")
+    return launches
+
+
+def technique_key(row) -> tuple:
+    """(deletions fraction, insertions fraction, metric, hub threshold) of
+    a result row, whichever package's tag it carries."""
+    import re
+
+    m = re.fullmatch(r"predictLinks(.+?)(?:Tpu|Cuda)(?:Fused)?(\d+)",
+                     row["technique"])
+    return (float(row["batch_deletions_fraction"]),
+            float(row["batch_insertions_fraction"]), m.group(1),
+            int(m.group(2)))
+
+
+def sweep_vs_tpu(device, out_dir: str, tpu_csv: str, argv) -> int:
+    """``python -m linkpred_tpu_torch.bench.sweep argv --out-dir out_dir``
+    on ``device``, in this process, under :class:`DriverProbe`; then its
+    rows against the TPU's ``tpu_csv`` row for row (technique matched by
+    metric and hub threshold): each row whose precision or recall differs,
+    the largest difference, and whether the pairs tied at the k-th score
+    explain it: the card's common count may move by at most twice the
+    pairs tied with its k-th score (``test_torch_harness.py``'s rule).
+    Returns the count of rows that ties do not explain."""
+    import csv
+
+    from linkpred_tpu_torch.bench import process, sweep
+
+    check(not os.path.exists(os.path.join(out_dir, "sweep.log")),
+          f"sweep: {out_dir} holds a log already")
+    with DriverProbe(device) as probe:
+        rc = sweep.main([*argv, "--out-dir", out_dir, "--device",
+                         device.type])
+    check(rc == 0, f"sweep: rc {rc}")
+    rows = [r for rs in process.read_log(
+        os.path.join(out_dir, "sweep.log")).values() for r in rs]
+    check(len(rows) == len(probe.ties) == len(probe.counts),
+          f"sweep: {len(rows)} rows, {len(probe.ties)} probed")
+    with open(tpu_csv, newline="") as f:
+        tpu = {technique_key(r): r for r in csv.DictReader(f)}
+    check(sorted(tpu) == sorted(technique_key(r) for r in rows),
+          f"sweep: the rows are not the TPU sweep's ({tpu_csv})")
+    print(card_line())
+    differ, worst, unexplained = 0, 0.0, 0
+    for r, ties, (common, n_del, n_ins) in zip(rows, probe.ties,
+                                                probe.counts):
+        w = tpu[technique_key(r)]
+        d = max(abs(r["precision"] - float(w["precision"])),
+                abs(r["recall"] - float(w["recall"])))
+        if d == 0:
+            continue
+        differ += 1
+        worst = max(worst, d)
+        tpu_common = round(float(w["precision"]) * n_ins)
+        ok = abs(common - tpu_common) <= 2 * ties
+        unexplained += not ok
+        print(f"  {r['technique']} at -{r['batch_deletions_fraction']}/+"
+              f"{r['batch_insertions_fraction']}: precision "
+              f"{r['precision']} / recall {r['recall']} against "
+              f"the TPU's {w['precision']} / {w['recall']}; common "
+              f"{common} against {tpu_common} of {n_ins} predicted, "
+              f"{n_del} removed; {ties} pairs tied at the k-th score: "
+              + ("explained by ties" if ok else "NOT explained by ties"))
+    print(f"sweep vs TPU: {differ} of {len(rows)} rows differ, the "
+          f"largest by {worst:.7g}; {unexplained} not explained by ties")
+    return unexplained
+
+
 def k1_ab(other: str) -> int:
     """K1's device times (``k1_times``) of the tree at ``other`` and of this
     one, each in a process of its own, in turns: other, this, this,
@@ -3040,6 +3358,15 @@ def main() -> int:
     from linkpred_tpu_torch.kernels import _build
 
     device = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--sweep-vs-tpu"]:
+        out_dir, tpu_csv, *argv = sys.argv[2:]
+        return 1 if sweep_vs_tpu(device, out_dir, tpu_csv, argv) else 0
+    if sys.argv[1:2] == ["--ihub-lhub"]:
+        out_dir, cpu_scale, *scales = sys.argv[2:]
+        print(card_line())
+        phase_examples_ihub_lhub(device, out_dir, [int(s) for s in scales],
+                                 (int(cpu_scale), 0.1))
+        return 0
     card = card_line()
     print("phase 0: card")
     print(card)
@@ -3103,11 +3430,15 @@ def main() -> int:
     phase("phase 12: the GraphSAGE family at full width (planted graph, "
           "RMAT-19)")
     gnn = phase_gnn(device, main_path)
+    torch.cuda.empty_cache()
+    phase("phase 13: the examples and scripts (serving, IHub vs LHub, two "
+          "rank processes, the scale table, the oracle drive)")
+    examples = phase_examples(device, main_path, scale)
     del main_path
     phase("done")
 
     paths = {"lhub": lhub, "ihub": ihub, "driver": driver, "bench": bench,
-             "sharded": sharded, "gnn": gnn}
+             "sharded": sharded, "gnn": gnn, "examples": examples}
     by_path = {name: {path: got[name] for path, got in paths.items()}
                for name in ("fused_tail", "pack_survivors")}
     by_path["pack_survivors"]["radix_probe"] = probe_packs

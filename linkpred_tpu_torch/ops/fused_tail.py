@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import torch
 
-from ..predict.metrics import METRICS, maxf2_mask
+from ..predict.metrics import METRICS, MetricSpec, get_metric, maxf2_mask
 from .segment import cummax, run_boundaries, segment_run_totals
 from .topk import desc_score_key, spread_invalid
 
-__all__ = ["fused_tail", "fused_tail_reference", "score_keys", "LAUNCHES",
-           "KILLER_LAUNCHES", "MAX_CAP"]
+__all__ = ["fused_tail", "fused_tail_reference", "fused_tail_supported",
+           "score_keys", "LAUNCHES", "KILLER_LAUNCHES", "MAX_CAP"]
 
 # Launches of the CUDA kernel (the wrapper adds one per launch), and of
 # those, the launches with the killer branch on.
@@ -39,6 +39,27 @@ KILLER_LAUNCHES = 0
 MAX_CAP = 1 << 30
 
 _CODES = {name: i for i, name in enumerate(METRICS)}
+
+
+def fused_tail_supported(*, packed: bool, deg16: bool, metrics,
+                         cap: int) -> bool:
+    """Whether K1 takes this engine configuration (the reference's
+    predicate and signature; ``metrics`` are names or specs).  As there,
+    ``packed`` and ``deg16`` do not restrict.
+
+    K1 takes a tile of ``1 <= cap < MAX_CAP`` lanes and up to 16 metrics,
+    at most two of them weighted.  Where it differs from the reference's
+    ``cap % 128 == 0 and cap >= 128``: K1 runs a tile's ragged ends lane
+    by lane, so it needs no rows of 128 lanes and takes the sub-plans'
+    caps below 128 and a caller's cap that 128 does not divide; and a run
+    start travels as ``start << 1 | alive`` in an int32, so it refuses
+    ``cap >= 2^30``, which the planner does not produce (its largest is a
+    hub sub-plan's, at most half of ``auto_seg_lanes``' 2^29)."""
+    del packed, deg16
+    specs = [m if isinstance(m, MetricSpec) else get_metric(m)
+             for m in metrics]
+    return (0 < cap < MAX_CAP and len(specs) <= 16
+            and sum(s.needs_weight for s in specs) <= 2)
 
 
 def _unpack(degs):

@@ -244,11 +244,15 @@ def rank_main(args) -> int:
     return 0
 
 
-def launch(n: int, rank_args: list, timeout: float) -> int:
+def launch(n: int, rank_args: list, timeout: float, command=None) -> int:
     """Start ``n`` rank processes, wait for them (stopping all when one
-    fails or the deadline passes), print their output; 0 iff all exited 0."""
+    fails or the deadline passes), print their output; 0 iff all exited 0.
+    Rank r runs ``command`` (default: this module) with ``--rank r --world
+    n --init-method file://...`` and ``rank_args``."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    command = command or [sys.executable, "-m",
+                          "linkpred_tpu_torch.parallel.sim"]
     with tempfile.TemporaryDirectory(prefix="lp_sim_") as tmp:
         init = "file://" + os.path.join(tmp, "store")
         env = dict(os.environ)
@@ -259,9 +263,8 @@ def launch(n: int, rank_args: list, timeout: float) -> int:
         for r in range(n):
             logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "linkpred_tpu_torch.parallel.sim",
-                 "--rank", str(r), "--world", str(n), "--init-method", init,
-                 *rank_args],
+                [*command, "--rank", str(r), "--world", str(n),
+                 "--init-method", init, *rank_args],
                 env=dict(env, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n)),
                 stdout=logs[-1], stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout

@@ -458,3 +458,47 @@ def test_tile_model_vs_twin(rng, tile, head, run_len, n_wt, killers):
     # test premise: runs lie within a tile, span two, or span many
     assert tiles.max() >= {3: 2, 40: 2, 400: 6}[run_len]
     assert run_len > 3 or np.diff(first).max() < tile
+
+
+# Caps the planner can produce: the adaptive 2^16-2^21, the sub-plans'
+# powers of two (a side plan's from 1, a hub sub-plan's up to half of
+# auto_seg_lanes' 2^29), and callers' caps: the tests' and examples' 2048
+# and 4096, and two that 128 does not divide.
+PLANNER_CAPS = [1 << i for i in range(29)] + [1000, 3000]
+# The caps K1 takes and the reference's Pallas tail does not: below 128,
+# and those that 128 does not divide (K1 runs a tile's ragged ends lane by
+# lane; the Pallas kernel lays lanes out in rows of 128).
+K1_ONLY_CAPS = [1, 2, 4, 8, 16, 32, 64, 1000, 3000]
+
+
+@pytest.mark.parametrize("metrics", [
+    ("jaccard_coefficient",), tuple(port_metrics.METRICS),
+    tuple(port_metrics.METRICS.values())], ids=["jaccard", "nine", "specs"])
+def test_fused_tail_supported_vs_reference(metrics):
+    for cap in PLANNER_CAPS:
+        for packed in (False, True):
+            for deg16 in (False, True):
+                kw = dict(packed=packed, deg16=deg16, cap=cap)
+                got = ft.fused_tail_supported(metrics=metrics, **kw)
+                want = ref_ft.fused_tail_supported(
+                    metrics=tuple(getattr(m, "name", m) for m in metrics),
+                    **kw)
+                if cap in K1_ONLY_CAPS:
+                    assert got and not want, cap
+                else:
+                    assert got == want, cap
+    # 2^30 lanes: the reference's predicate takes it, K1 refuses it (its
+    # run starts are int32 start << 1 | alive), as its wrapper does
+    kw = dict(packed=True, deg16=True, cap=1 << 30)
+    assert ref_ft.fused_tail_supported(metrics=("jaccard_coefficient",),
+                                       **kw)
+    assert not ft.fused_tail_supported(metrics=metrics, **kw)
+
+
+def test_fused_tail_supported_refuses_what_the_wrapper_refuses():
+    kw = dict(packed=True, deg16=True, cap=4096)
+    assert not ft.fused_tail_supported(metrics=("cn",) * 17, **kw)
+    assert not ft.fused_tail_supported(metrics=("aa", "ra", "aa"), **kw)
+    assert not ft.fused_tail_supported(metrics=("cn",), packed=True,
+                                       deg16=True, cap=0)
+    assert ft.fused_tail_supported(metrics=("aa", "ra"), **kw)

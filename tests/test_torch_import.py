@@ -1,10 +1,12 @@
 """The port stands alone: it imports neither jax nor the reference package
-(every module, the scoring entry points, ``python -m
-linkpred_tpu_torch`` with its log post-processor, the bench row, the sweep,
+(every module, the port-side examples and scripts (read with ``ast``),
+the scoring entry points, ``python -m linkpred_tpu_torch`` with its log
+post-processor, the bench row, the sweep,
 the models and the GraphSAGE family, npz files, the profiler helper, the
 graph builder, the small host and device helpers, a one-rank mesh and two
 rank processes of ``parallel.sim``), and its kernel builder fails loudly
 without nvcc."""
+import ast
 import os
 import subprocess
 import sys
@@ -172,3 +174,27 @@ def test_builder_flags_target_hopper_without_fast_math():
     assert all(os.path.isfile(s) and s.endswith(".cu")
                for s in _build.SOURCES)
 
+
+
+# The port-side examples and scripts, beside the JAX package's originals.
+PORT_SCRIPTS = ["scripts/verify_torch.py", "scripts/bench_table_torch.py",
+                "examples/serving/run_torch.py",
+                "examples/ihub_vs_lhub/run_torch.py",
+                "examples/multihost_sim/run_torch.py"]
+
+
+@pytest.mark.parametrize("rel", PORT_SCRIPTS)
+def test_port_scripts_import_no_jax(rel):
+    """No import statement of the file, at any depth, names jax, jaxlib or
+    the reference package; each defaults to the card."""
+    src = open(os.path.join(REPO, rel)).read()
+    tops = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add(node.module.split(".")[0])
+    assert not tops & {"jax", "jaxlib", "linkpred_tpu"}, (rel, tops)
+    assert "linkpred_tpu_torch" in tops, rel
+    assert 'default="cuda"' in src or \
+        'os.environ.get("BENCH_DEVICE", "cuda")' in src, rel
