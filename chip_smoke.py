@@ -88,12 +88,24 @@ LHub at RMAT-14 against the CPU;
 the card; (d) ``scripts/bench_table_torch.py 18 19``, a fresh bench
 process a row; (e) ``scripts/verify_torch.py``, the dense oracle.
 
+Phase 14 drives the engine's design probes (``linkpred_tpu_torch/
+experiments/``, the counterparts of the JAX package's ``experiments/``):
+the graph probes (``profile_bench``, ``profile_tiles``, ``diag_scale``,
+``diag_s21``, ``ab_split`` and its ``--deferred``, ``diag_pack``) on phase
+5's graph and plan, the synthetic ones at ``PROBE_CUTS``; every probe
+holds its arms equal on the card and raises otherwise; the phase prints
+its rows, each probe's wall seconds against ``PROBES_BUDGET_S``, and K1's
+and K2's launches (the path ``probes``).
+
     python3 chip_smoke.py [scale]
+    python3 chip_smoke.py --probes OUT_DIR
     python3 chip_smoke.py --k1-ab OTHER_TREE
     python3 chip_smoke.py --ihub-lhub OUT_DIR CPU_SCALE SCALE...
     python3 chip_smoke.py --sweep-vs-tpu OUT_DIR TPU_CSV SWEEP_ARGS...
 
 ``scale`` (default 19) sets the R-MAT scale of the LHub path.  With
+``--probes`` it runs only the design probes, at the JAX probes' own sizes,
+into ``OUT_DIR/probes.jsonl``.  With
 ``--k1-ab`` it only times K1 at the main paths' shapes, in this tree and in
 another checkout of the repository (such as the parent commit unpacked by
 ``git archive``), in turns.  With ``--ihub-lhub`` it runs only phase 13
@@ -1233,41 +1245,24 @@ def ihub_pass_split(device, plan, y, kk, indices, degrees):
     return out
 
 
-def cummax_slot_map(fe_work, t_start: int, t_end: int, cap: int):
-    """The edge tile's slot -> row map as the port first carried it from
-    the reference (``.at[pos].max(iota, mode="drop")`` + ``cummax``), the
-    yardstick of ``scoring._slot_map``: over the whole window, each row
-    with work writes its id at its first slot, every other row (the
-    window's rows past the tile's ~4,500 too) scatters into one drop slot,
-    and a running max over the cap lanes fills the map."""
-    import torch
-
-    iota = torch.arange(cap, dtype=torch.int32, device=fe_work.device)
-    ework = torch.where(iota < (t_end - t_start),
-                        fe_work[t_start: t_start + cap], 0)
-    incl = torch.cumsum(ework, 0, dtype=torch.int32)
-    pos = torch.where(ework > 0, incl - ework, cap).to(torch.int64)
-    starts = torch.zeros(cap + 1, dtype=torch.int32, device=fe_work.device)
-    starts.scatter_reduce_(0, pos, iota, reduce="amax")
-    return torch.cummax(starts[:cap], 0).values.to(torch.int64)
-
-
 def slot_map_ab(stream, win, cap):
     """The slot map of each tile of ``win``: the new one
-    (``scoring._slot_map``) equal to the old formula on every lane, then
+    (``scoring._slot_map``) equal to the old formula
+    (``experiments.ab_edge3.scatter_slot_map``) on every lane, then
     both timed with CUDA events over the window.  Returns (old, new) ms a
     tile."""
     import torch
+    from linkpred_tpu_torch.experiments.ab_edge3 import scatter_slot_map
     from linkpred_tpu_torch.predict import scoring
 
     fe_work = stream[0]
     iota = torch.arange(cap, dtype=torch.int32, device=fe_work.device)
     for s, e in win:
         new = scoring._slot_map(fe_work, s, e, iota)[3]
-        check(torch.equal(new, cummax_slot_map(fe_work, s, e, cap)),
+        check(torch.equal(new, scatter_slot_map(fe_work, s, e, cap)[1]),
               f"IHub slot map of tile [{s}, {e}) differs from the old "
               "formula's")
-    old_ms = cuda_ms(lambda: [cummax_slot_map(fe_work, s, e, cap)
+    old_ms = cuda_ms(lambda: [scatter_slot_map(fe_work, s, e, cap)
                               for s, e in win], 3)
     new_ms = cuda_ms(lambda: [scoring._slot_map(fe_work, s, e, iota)
                               for s, e in win], 3)
@@ -3254,6 +3249,155 @@ def phase_examples(device, main_path, scale):
     return launches
 
 
+# ------------------------------------ phase 14: the engine's design probes
+
+# The phase's budget in seconds of the smoke.
+PROBES_BUDGET_S = 150
+# The synthetic probes, each with its arguments here: its own size where
+# that is cheap, else a cut (ab_select 2^23 of its 2^25 lanes, ab_sel2 8 of
+# its 32 tiles, ab_pack_sel 2^24 of its 68 x 2^21 lanes with kk at the
+# same 1.567% share, ab_batchsort 8 of its 32 rows, ab_deg_gather 4 of its
+# 16 tiles, ab_edge3 2 of its 8, mesh_overhead 1 and 2 ranks at RMAT-13).
+PROBE_CUTS = [
+    ("ab_width2", []),
+    ("ab_batchsort", ["--t", "8"]),
+    ("ab_merge", []),
+    ("amort2", []),
+    ("ab_select", ["--log2n", "23"]),
+    ("ab_sel2", ["--t", "8"]),
+    ("ab_pack_sel", ["--lanes", str(1 << 24), "--kk",
+                     str(round(2234330 * (1 << 24) / (68 << 21)))]),
+    ("ab_deg_gather", ["--t", "4"]),
+    ("ab_edge3", ["--t", "2"]),
+    ("ab_edge2", []),
+    ("mesh_overhead", ["--mo-scale", "13", "--ranks", "1,2"]),
+]
+# The probes at the JAX probes' own sizes (``--probes``), in the order of
+# the port's slice: where a pass spends its time, the selection, the
+# tile's sort and gathers, the ranks.
+PROBES_FULL = [
+    ("profile_bench", []), ("profile_tiles", []), ("diag_scale", []),
+    ("diag_s21", []), ("ab_split", []), ("ab_split", ["--deferred"]),
+    ("ab_select", []), ("ab_sel2", []), ("ab_pack_sel", []),
+    ("diag_pack", []), ("ab_width2", []), ("ab_batchsort", []),
+    ("ab_deg_gather", []), ("ab_edge3", []), ("ab_edge2", []),
+    ("ab_merge", []), ("amort2", []), ("mesh_overhead", []),
+]
+
+
+def probe_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"linkpred_tpu_torch.experiments.{name}")
+
+
+def phase_probes(device, main_path):
+    """Phase 14: every ported design probe on the card, its arms held
+    equal there (each probe raises on a disagreement).  The graph probes
+    run on phase 5's graph and plan (RMAT-19: profile_tiles on it at k =
+    4096 in place of the generator's RMAT-18, diag_s21 and diag_pack at
+    RMAT-19 in place of 21); the synthetic ones at ``PROBE_CUTS``.  Prints
+    a digest of each probe's rows (the top 5 of a per-op table) and its
+    wall seconds; returns K1's and K2's launches."""
+    import contextlib
+    import io
+
+    from linkpred_tpu_torch.experiments import (_probe, ab_split, diag_pack,
+                                                diag_s21, diag_scale,
+                                                profile_bench)
+    from linkpred_tpu_torch.ops import compact
+    from linkpred_tpu_torch.ops import fused_tail as ft
+
+    y, deletions, plan, k = main_path
+    graph_probes = [
+        ("profile_bench", lambda r: profile_bench.profile_pass(
+            y, plan, k, device, r)),
+        ("profile_tiles", lambda r: profile_bench.profile_pass(
+            y, plan, 4096, device, r, top=40)),
+        ("diag_scale", lambda r: diag_scale.diagnose(
+            y, plan, 1 << 20, device, r, trace=True)),
+        ("diag_s21", lambda r: diag_s21.diagnose(y, plan, k, device, r,
+                                                 pack=False)),
+        ("ab_split", lambda r: ab_split.split(y, plan, 1 << 18, device, r)),
+        ("ab_deferred", lambda r: ab_split.split(y, plan, 1 << 19, device,
+                                                 r)),
+        ("diag_pack", lambda r: diag_pack.decision(y, plan, k, device, r)),
+    ]
+    def quiet(fn):
+        # a probe's own JSON lines (the per-op tables run to kilobytes)
+        # give way to a digest of its rows
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    def graph_run(name, run):
+        rows = _probe.Rows(name, device, scale="phase 5's")
+        run(rows)
+        return rows.rows
+
+    ft.LAUNCHES = compact.LAUNCHES = 0
+    walls = {}
+    t_start = time.perf_counter()
+    runs = [(name, lambda n=name, r=run: graph_run(n, r))
+            for name, run in graph_probes]
+    runs += [(name, lambda n=name, a=argv: probe_module(n).main(
+        ["--device", "cuda", *a])) for name, argv in PROBE_CUTS]
+    for name, run in runs:
+        t0 = time.perf_counter()
+        rows = quiet(run)
+        walls[name] = time.perf_counter() - t0
+        for row in rows[1:]:
+            if row.get("row") == "ops":
+                row = dict(row, ops=[[n[:60], round(t, 3)]
+                                     for n, t in row["ops"][:5]])
+            print("    " + json.dumps(row)[:300])
+    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    total = time.perf_counter() - t_start
+    print("  phase 14 walls: " + ", ".join(f"{n} {t:.1f} s"
+                                           for n, t in walls.items()))
+    print(f"  phase 14: {len(walls)} probes, every arm held equal on the "
+          f"card; {total:.1f} s of its {PROBES_BUDGET_S} s budget; "
+          f"launches {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"probes: a kernel never launched: {launches}")
+    return launches
+
+
+def run_probes(out_dir: str) -> int:
+    """``--probes``: probes 1-17 at the JAX probes' own sizes, one after
+    another in this process, their rows (and each probe's wall seconds,
+    or its failure) appended to ``out_dir/probes.jsonl``.  Returns the
+    count of probes that failed."""
+    import traceback
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "probes.jsonl")
+    failed = 0
+    print(card_line())
+    for name, argv in PROBES_FULL:
+        t0 = time.perf_counter()
+        try:
+            rows = probe_module(name).main(["--device", "cuda", *argv])
+            rows.append({"probe": rows[0]["probe"], "row": "wall",
+                         "seconds": time.perf_counter() - t0})
+        except Exception as e:      # recorded, and the run exits non-zero
+            failed += 1
+            traceback.print_exc()
+            rows = [{"probe": name, "argv": argv, "row": "failed",
+                     "error": f"{type(e).__name__}: {e}"[:2000],
+                     "seconds": time.perf_counter() - t0}]
+        with open(path, "a") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+        print(f"--probes: {name} {' '.join(argv)} "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        import torch
+
+        torch.cuda.empty_cache()
+    print(f"--probes: {len(PROBES_FULL) - failed} of {len(PROBES_FULL)} "
+          f"ran; rows in {path}")
+    return failed
+
+
 def technique_key(row) -> tuple:
     """(deletions fraction, insertions fraction, metric, hub threshold) of
     a result row, whichever package's tag it carries."""
@@ -3361,6 +3505,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--sweep-vs-tpu"]:
         out_dir, tpu_csv, *argv = sys.argv[2:]
         return 1 if sweep_vs_tpu(device, out_dir, tpu_csv, argv) else 0
+    if sys.argv[1:2] == ["--probes"]:
+        return 1 if run_probes(sys.argv[2]) else 0
     if sys.argv[1:2] == ["--ihub-lhub"]:
         out_dir, cpu_scale, *scales = sys.argv[2:]
         print(card_line())
@@ -3434,11 +3580,16 @@ def main() -> int:
     phase("phase 13: the examples and scripts (serving, IHub vs LHub, two "
           "rank processes, the scale table, the oracle drive)")
     examples = phase_examples(device, main_path, scale)
+    torch.cuda.empty_cache()
+    phase("phase 14: the engine's design probes (where a pass spends its "
+          "time, the selection, the tile's sort and gathers, the ranks)")
+    probes = phase_probes(device, main_path)
     del main_path
     phase("done")
 
     paths = {"lhub": lhub, "ihub": ihub, "driver": driver, "bench": bench,
-             "sharded": sharded, "gnn": gnn, "examples": examples}
+             "sharded": sharded, "gnn": gnn, "examples": examples,
+             "probes": probes}
     by_path = {name: {path: got[name] for path, got in paths.items()}
                for name in ("fused_tail", "pack_survivors")}
     by_path["pack_survivors"]["radix_probe"] = probe_packs

@@ -198,3 +198,29 @@ def test_port_scripts_import_no_jax(rel):
     assert "linkpred_tpu_torch" in tops, rel
     assert 'default="cuda"' in src or \
         'os.environ.get("BENCH_DEVICE", "cuda")' in src, rel
+
+
+# The engine's design probes (linkpred_tpu_torch/experiments/), and the
+# helper they share.
+PROBE_MODULES = sorted(
+    f for f in os.listdir(os.path.join(REPO, "linkpred_tpu_torch",
+                                       "experiments"))
+    if f.endswith(".py") and f != "__init__.py")
+
+
+@pytest.mark.parametrize("name", PROBE_MODULES)
+def test_probe_modules_import_no_jax(name):
+    """No import statement of a probe module, at any depth, names jax,
+    jaxlib or the reference package; a design probe's entry point takes
+    ``--device``, the card by default."""
+    rel = os.path.join("linkpred_tpu_torch", "experiments", name)
+    src = open(os.path.join(REPO, rel)).read()
+    tops = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add(node.module.split(".")[0])
+    assert not tops & {"jax", "jaxlib", "linkpred_tpu"}, (rel, tops)
+    if not name.startswith(("pallas_", "radix_", "_")):
+        assert "resolve_device(args.device)" in src, rel
