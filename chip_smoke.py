@@ -175,6 +175,15 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {msg}")
 
 
+def kernel_launches() -> dict:
+    """K1's and K2's CUDA launches by wrapper name, from the program's
+    counters (``utils/profiling.py``) since their last reset."""
+    from linkpred_tpu_torch.utils.profiling import counter
+
+    return {"fused_tail": counter("k1.launches"),
+            "pack_survivors": counter("k2.launches")}
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -675,15 +684,15 @@ def phase_p1(device, rng):
     """P1's probe path: K1 at the prototype's configuration (Jaccard,
     deg16, no weights, no killers, W_BITS 21, 2^21 lanes) through the
     probe's ``pallas_tail``, bit-equal to the plain copy of its XLA tail."""
+    from linkpred_tpu_torch.utils.profiling import counter, reset_counters
     import torch
     from linkpred_tpu_torch.experiments import pallas_tail as p1
-    from linkpred_tpu_torch.ops import fused_tail as ft
 
     hi, lo, dpack = (torch.as_tensor(a, device=device)
                      for a in p1.make_stream(rng))
-    ft.LAUNCHES = 0
+    reset_counters()
     got = p1.pallas_tail(hi, lo, dpack, 0.0)
-    launches = ft.LAUNCHES
+    launches = counter("k1.launches")
     want = p1.xla_tail(hi, lo, dpack, 0.0)
     torch.cuda.synchronize()
     for a, b, what in zip(got, want, ("keys", "ku", "kw")):
@@ -837,14 +846,13 @@ def phase_end_to_end(device):
     d1 in {0, 4}, its sentinel two-key branch and serving mode; and runs
     with ``HUGE_DEVICE_MAX`` forced small so hub sources go to the host
     scorer (``plan.host_src``)."""
+    from linkpred_tpu_torch.utils.profiling import counter
     import dataclasses
 
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.bench.synth import (planted_partition_graph,
                                                 rmat_graph)
-    from linkpred_tpu_torch.ops import fused_tail as ft
     from linkpred_tpu_torch.predict import plan as plan_mod
-    from linkpred_tpu_torch.predict import scoring
 
     names = list(lt.METRICS)
     opts = lt.PredictOptions(max_edges=20_000)
@@ -859,12 +867,12 @@ def phase_end_to_end(device):
                                     sources=sources, device=dev)
             if not keyed:
                 p = dataclasses.replace(p, keyed=False)
-            k_before, s_before = ft.KILLER_LAUNCHES, scoring.SEGMENT_RUNS
+            k_before = counter("k1.killer_launches")
             res[str(dev)] = lt.predict_links_multi(
                 g, names, min_degree1=d1, options=opts, plan=p,
                 sources=sources, device=dev)
             if dev == device:
-                killers = ft.KILLER_LAUNCHES - k_before
+                killers = counter("k1.killer_launches") - k_before
                 check(slot_budget != 0 or not p.packed or not p.total_slots,
                       f"{where}: plan not on the edge stream")
                 check((killers > 0) == (keyed and not p.packed),
@@ -1029,10 +1037,8 @@ def phase_main_path(device, scale: int = 19):
     """The LHub main path at RMAT-``scale``.  Returns the K1 and K2
     launches of its run, and (the graph, its tidied deletions, the plan, k)
     for phase 9."""
+    from linkpred_tpu_torch.utils.profiling import counter, reset_counters
     import linkpred_tpu_torch as lt
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
-    from linkpred_tpu_torch.predict import scoring
     from linkpred_tpu_torch.predict.plan import build_plan
 
     t0 = time.perf_counter()
@@ -1047,15 +1053,14 @@ def phase_main_path(device, scale: int = 19):
           f"{plan.total_slots} slots, plan_ms {plan_ms:.1f}")
     opts = lt.PredictOptions(repeat=5, max_edges=k)
 
-    ft.LAUNCHES = ft.KILLER_LAUNCHES = compact.LAUNCHES = 0
-    scoring.PACKED_ARM_RUNS = scoring.SORT_ARM_RUNS = 0
+    reset_counters()
     rates, res = [], None
     for _ in range(3):
         res = lt.predict_links(y, "jaccard_coefficient", min_degree1=64,
                                options=opts, plan=plan, device=device)
         rates.append(y.size / (res.scoring_ms / 1e3))
-    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
-    arms = (scoring.PACKED_ARM_RUNS, scoring.SORT_ARM_RUNS)
+    launches = kernel_launches()
+    arms = (counter("select.packed_arm"), counter("select.sort_arm"))
 
     recall = recall_of(res, removed)
     rates.sort()
@@ -1074,7 +1079,8 @@ def phase_main_path(device, scale: int = 19):
     check(all(v > 0 for v in launches.values()),
           f"main path: a kernel never launched: {launches}")
     check(arms[0] > 0, "main path: the survivor pack arm never ran")
-    check(ft.KILLER_LAUNCHES == 0, "main path: killers on packed tiles")
+    check(counter("k1.killer_launches") == 0,
+          "main path: killers on packed tiles")
 
     split, by_kernel = time_split(device, plan, y, k)
     busy = sum(by_kernel.values())
@@ -1341,11 +1347,10 @@ def ihub_tile_split(device, plan, y, indices, degrees, n_win: int = 32):
 def phase_ihub(device, scale: int = 18):
     """IHub at scale: predict_links Jaccard at min_degree1=0 with the
     card's own budgets, which put RMAT-18 on the edge stream."""
+    from linkpred_tpu_torch.utils.profiling import counter, reset_counters
     import torch
     import linkpred_tpu_torch as lt
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
-    from linkpred_tpu_torch.predict import api, scoring
+    from linkpred_tpu_torch.predict import api
     from linkpred_tpu_torch.predict.plan import build_plan
 
     t0 = time.perf_counter()
@@ -1368,15 +1373,15 @@ def phase_ihub(device, scale: int = 18):
     opts = lt.PredictOptions(repeat=1, max_edges=k)
 
     torch.cuda.reset_peak_memory_stats(device)
-    ft.LAUNCHES = ft.KILLER_LAUNCHES = compact.LAUNCHES = 0
-    scoring.SEGMENT_RUNS = 0
+    reset_counters()
     rates, res = [], None
     for _ in range(3):
         res = lt.predict_links(y, "jaccard_coefficient", min_degree1=0,
                                options=opts, plan=plan, device=device)
         rates.append(y.size / (res.scoring_ms / 1e3))
-    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
-    killer_launches, seg_runs = ft.KILLER_LAUNCHES, scoring.SEGMENT_RUNS
+    launches = kernel_launches()
+    killer_launches = counter("k1.killer_launches")
+    seg_runs = counter("scan.segments")
     n_passes = 3 * 2          # each call: one warm-up pass, one timed pass
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
 
@@ -1727,6 +1732,7 @@ def phase_sort_probes(device, rng, p4_dev):
     kernel), each driven through its ``run``/``main`` with the launch
     counts zeroed just before and read just after; then each kernel against
     its plain version, and the timings beside the bounds."""
+    from linkpred_tpu_torch.utils.profiling import counter, reset_counters
     import torch
     from linkpred_tpu_torch.experiments import pallas_bitonic as p2
     from linkpred_tpu_torch.experiments import pallas_bitonic2 as p3
@@ -1735,7 +1741,8 @@ def phase_sort_probes(device, rng, p4_dev):
 
     # the probes' paths: P2/P3 at 2^18 (where the TPU measured them) and at
     # the engine's tile sizes; the radix probe at its own 2^21 lanes
-    p2.LAUNCHES = p3.LAUNCHES = rp.LAUNCHES = compact.LAUNCHES = 0
+    p2.LAUNCHES = p3.LAUNCHES = rp.LAUNCHES = 0
+    reset_counters()
     for m in SORT_SIZES:
         p2.run(m, payload=True, device=device)
         p3.run(m, device=device)
@@ -1744,7 +1751,7 @@ def phase_sort_probes(device, rng, p4_dev):
     radix = rp.main(["--lanes-log2", str(RADIX_LOG2), "--repeat", "10"])
     launches = {"make_pallas_sort": p2.LAUNCHES, "make_sort": p3.LAUNCHES,
                 "dynstore_run": rp.LAUNCHES,
-                "pack_survivors": compact.LAUNCHES}
+                "pack_survivors": counter("k2.launches")}
     print(f"  launches in the probes' paths: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"sort probes: a kernel never launched: {launches}")
@@ -1965,11 +1972,10 @@ def phase_driver_vs_plain(device, tmp):
     thresholds 0, 4, 64, one deletion fraction, on a planted-partition
     graph of 2,000 vertices written by the port's ``write_mtx``.  Returns
     the K1 and K2 launches of the card's run and the graph's path."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.bench import harness
     from linkpred_tpu_torch.bench.synth import planted_partition_graph
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
     from linkpred_tpu_torch.ops.transform import remove_self_loops
 
     # 2 tiles of 2^20 slots at thresholds 0 and 64 (4 padded): the
@@ -1980,11 +1986,11 @@ def phase_driver_vs_plain(device, tmp):
     sweep = ["--degrees", "0,4,64", "--deletions-begin", "0.1",
              "--deletions-end", "0.1", "--seed", "7", *DRIVER_SWEEP]
 
-    ft.LAUNCHES = compact.LAUNCHES = 0
+    reset_counters()
     with DriverProbe(device) as p_card:
         log = run_cli([path, "1", "0", "--jsonl", "--device", device.type,
                        *sweep])
-    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    launches = kernel_launches()
     got = [json.loads(ln) for ln in log.splitlines() if ln.startswith("{")]
 
     y = remove_self_loops(lt.read_mtx(path))
@@ -2017,13 +2023,12 @@ def phase_driver_rmat(device, tmp, scale: int = 18):
     thresholds 4 and 64, deletion fractions 0.01 and 0.1, repeat-method 5;
     fused, then ``--unfused``.  Both logs go through the port's
     post-processor.  Returns the K1 and K2 launches of both runs."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import torch
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.bench import process
     from linkpred_tpu_torch.bench.synth import rmat_graph
     from linkpred_tpu_torch.graph import edge_list
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
 
     t_phase = time.perf_counter()
     g = rmat_graph(scale, edge_factor=16, seed=42)
@@ -2042,13 +2047,13 @@ def phase_driver_rmat(device, tmp, scale: int = 18):
         extra = ["--unfused"] if mode == "unfused" else []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        ft.LAUNCHES = compact.LAUNCHES = 0
+        reset_counters()
         with DriverProbe(device) as probe:
             t0 = time.perf_counter()
             log = run_cli([path, "0", "0", "--device", device.type,
                            *RMAT_DRIVER, *extra])
             wall = time.perf_counter() - t0
-        got = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+        got = kernel_launches()
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         log_path = os.path.join(tmp, f"{name}-{mode}.log")
         with open(log_path, "w") as f:
@@ -2206,12 +2211,11 @@ def phase_bench_row(device, tmp, main_path, scale):
     protocol), so nothing is made twice; then ``python -m
     linkpred_tpu_torch.bench.run`` on that cache in a process of its own.
     Returns the K1 and K2 launches of the in-process run."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import contextlib
     import io
 
     from linkpred_tpu_torch.bench import run
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
     from linkpred_tpu_torch.utils import roofline
 
     y, deletions, plan, _ = main_path
@@ -2221,7 +2225,7 @@ def phase_bench_row(device, tmp, main_path, scale):
              if k.startswith("BENCH_")}
     os.environ.update(BENCH_SCALE=str(scale), BENCH_CACHE_DIR=cache)
     out = io.StringIO()
-    ft.LAUNCHES = compact.LAUNCHES = 0
+    reset_counters()
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -2231,7 +2235,7 @@ def phase_bench_row(device, tmp, main_path, scale):
         for k in ("BENCH_SCALE", "BENCH_CACHE_DIR"):
             os.environ.pop(k)
         os.environ.update(saved)
-    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    launches = kernel_launches()
     check(rc == 0, f"bench (a): main() returned {rc}")
     row = bench_row(out.getvalue(), "bench (a)")
     check(row["metric"] == f"lhub_jaccard_coefficient_deg64_rmat{scale}_rate",
@@ -2302,11 +2306,10 @@ def phase_models(device, tmp):
     """Part (c): ``all_models(degrees=(0, 4, 64))`` on the card against
     the same zoo on the CPU, on the planted graph of phase 8 (a) written as
     MTX and read back.  Returns the graph's path."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.bench.synth import planted_partition_graph
     from linkpred_tpu_torch.models import all_models
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
     from linkpred_tpu_torch.ops.transform import remove_self_loops
 
     g = planted_partition_graph(20, 100, p_in=0.3, p_out=0.0005, seed=3)
@@ -2316,7 +2319,7 @@ def phase_models(device, tmp):
     k = int(0.1 * y.size / 2)
     card = all_models(degrees=(0, 4, 64), device=device.type)
     cpu = all_models(degrees=(0, 4, 64), device="cpu")
-    ft.LAUNCHES = compact.LAUNCHES = 0
+    reset_counters()
     rows, t_card, t_cpu = [], 0.0, 0.0
     for p, q in zip(card, cpu):
         check(p.name == q.name and p.name.endswith(f"Cuda{p.min_degree1}"),
@@ -2329,7 +2332,7 @@ def phase_models(device, tmp):
         t_cpu += time.perf_counter() - t1
         same_result(a, b, lt.METRICS[p.metric], f"models (c) {p.name}")
         rows.append(len(a))
-    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    launches = kernel_launches()
     check(len(card) == 27 and {p.min_degree1 for p in card} == {0, 4, 64},
           f"models (c): {len(card)} predictors")
     check(all(v > 0 for v in launches.values()),
@@ -2347,14 +2350,13 @@ def phase_sweep(device, tmp, planted):
     with ``--resume``, and ``--suite reference --allow-missing`` on a data
     dir holding one small graph as coAuthorsDBLP; then ``run_sweep`` in
     this process on the card against the CPU."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import contextlib
     import io
 
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.bench import harness, process, sweep
     from linkpred_tpu_torch.bench.synth import planted_partition_graph
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
 
     out_dir = os.path.join(tmp, "sweep")
     argv = ["linkpred_tpu_torch.bench.sweep", "--graphs", planted,
@@ -2416,13 +2418,12 @@ def phase_sweep(device, tmp, planted):
             repeat_batch=1, repeat_method=1, deletions_begin=0.1,
             deletions_end=0.1, metrics=("cn", "jaccard", "aa"),
             degrees=(0, 64), seed=7, device=dev)
-        ft.LAUNCHES = compact.LAUNCHES = 0
+        reset_counters()
         with DriverProbe(dev) as probe, \
                 contextlib.redirect_stdout(io.StringIO()):
             path = sweep.run_sweep([planted], cfg,
                                    os.path.join(tmp, f"run_sweep_{side}"))
-        launches = {"fused_tail": ft.LAUNCHES,
-                    "pack_survivors": compact.LAUNCHES}
+        launches = kernel_launches()
         runs[side] = (process.read_log(path)["planted"], probe)
         if side == "card":
             check(all(v > 0 for v in launches.values()),
@@ -2474,9 +2475,10 @@ def phase_npz_profile(device, tmp, main_path):
             check(attempt < 2 and "no device event" in str(e), str(e))
             print(f"  profile_fn: {e}; a new session")
     print("  profile_fn around one LHub pass, top 10 rows (ms):")
-    for name, ms in summary[:10]:
-        print(f"    {ms:9.3f}  {name[:100]}")
-    k1 = [(name, ms) for name, ms in summary if "tail_onepass" in name]
+    for name, ms, on_card in summary[:10]:
+        print(f"    {ms:9.3f}  {'card' if on_card else 'host'}  {name[:100]}")
+    k1 = [(name, ms) for name, ms, on_card in summary
+          if on_card and "tail_onepass" in name]
     check(k1, "profile_fn: no tail_onepass (K1) row among the kernels")
     for name, ms in k1:
         print(f"    K1: {ms:9.3f} ms  {name[:100]}")
@@ -2751,12 +2753,11 @@ def phase_one_rank(device, main_path, tmp):
     ``predict_links(mesh=)`` on phase 5's graph, plan and k against the
     plain pass: the same score multiset and the same pairs above the k-th
     score.  Returns the K1 and K2 launches of the sharded run."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import torch
     import torch.distributed as dist
 
     import linkpred_tpu_torch as lt
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
     from linkpred_tpu_torch.ops.topk import TopK
     from linkpred_tpu_torch.parallel import distributed, mesh as pmesh
 
@@ -2770,11 +2771,10 @@ def phase_one_rank(device, main_path, tmp):
         backend=distributed.default_backend(1, device.type))
     try:
         mesh = pmesh.make_mesh(1, device=device)
-        ft.LAUNCHES = compact.LAUNCHES = 0
+        reset_counters()
         sharded = lt.predict_links(y, spec.name, min_degree1=64,
                                    options=opts, plan=plan, mesh=mesh)
-        launches = {"fused_tail": ft.LAUNCHES,
-                    "pack_survivors": compact.LAUNCHES}
+        launches = kernel_launches()
         kk = sharded.u.shape[0]
         buf = TopK(*(torch.zeros((1, kk), dtype=dt, device=device)
                      for dt in (torch.float32, torch.int32, torch.int32)))
@@ -2976,11 +2976,10 @@ def phase_gnn_rmat(device, main_path):
     ``HybridPredictor`` with LHub Jaccard deg 64 candidates at k = the
     removed edges, beside the heuristic's recall.  Returns the K1 and K2
     launches of the two predictors."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import linkpred_tpu_torch as lt
     from linkpred_tpu_torch.models import (GNNPredictor, HeuristicPredictor,
                                            HybridPredictor)
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
 
     y, deletions, plan, k = main_path
     removed = {(int(a), int(b)) for a, b in deletions if a < b}
@@ -2997,13 +2996,13 @@ def phase_gnn_rmat(device, main_path):
                          min_degree1=64, device=device.type)
     hyb = HybridPredictor(gnn_p, HeuristicPredictor(
         "jaccard", 64, cap=plan.cap, device=device.type))
-    ft.LAUNCHES = compact.LAUNCHES = 0
+    reset_counters()
     t0 = time.perf_counter()
     res_g = gnn_p.predict(y, max_edges=k)
     t1 = time.perf_counter()
     res_h = hyb.predict(y, max_edges=k)
     t2 = time.perf_counter()
-    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    launches = kernel_launches()
     for name, res in (("GNN", res_g), ("hybrid", res_h)):
         check(len(res) == k and np.isfinite(res.score).all()
               and np.all(np.diff(res.score) <= 0)
@@ -3205,17 +3204,16 @@ def phase_examples(device, main_path, scale):
     """Phase 13, parts (a)-(e): the port-side examples and scripts on the
     card (``scale``: phase 5's).  Returns the K1 and K2 launches of the
     parts run in this process ((a), (b) and (e))."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import contextlib
     import io
     import tempfile
 
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
 
     t_start = time.perf_counter()
     times = {}
     with tempfile.TemporaryDirectory() as tmp:
-        ft.LAUNCHES = compact.LAUNCHES = 0
+        reset_counters()
         t0 = time.perf_counter()
         phase_examples_serving(device)
         times["a"] = time.perf_counter() - t0
@@ -3226,8 +3224,7 @@ def phase_examples(device, main_path, scale):
         verify = load_file("scripts/verify_torch.py", "verify_torch")
         with contextlib.redirect_stdout(io.StringIO()) as out:
             check(verify.main([]) == 0, "verify (e): rc")
-        launches = {"fused_tail": ft.LAUNCHES,
-                    "pack_survivors": compact.LAUNCHES}
+        launches = kernel_launches()
         lines = out.getvalue().strip().splitlines()
         check(len(lines) == 3 and lines[0].startswith("device: cuda")
               and lines[1].startswith("OK: jaccard")
@@ -3299,14 +3296,13 @@ def phase_probes(device, main_path):
     RMAT-19 in place of 21); the synthetic ones at ``PROBE_CUTS``.  Prints
     a digest of each probe's rows (the top 5 of a per-op table) and its
     wall seconds; returns K1's and K2's launches."""
+    from linkpred_tpu_torch.utils.profiling import reset_counters
     import contextlib
     import io
 
     from linkpred_tpu_torch.experiments import (_probe, ab_split, diag_pack,
                                                 diag_s21, diag_scale,
                                                 profile_bench)
-    from linkpred_tpu_torch.ops import compact
-    from linkpred_tpu_torch.ops import fused_tail as ft
 
     y, deletions, plan, k = main_path
     graph_probes = [
@@ -3334,7 +3330,7 @@ def phase_probes(device, main_path):
         run(rows)
         return rows.rows
 
-    ft.LAUNCHES = compact.LAUNCHES = 0
+    reset_counters()
     walls = {}
     t_start = time.perf_counter()
     runs = [(name, lambda n=name, r=run: graph_run(n, r))
@@ -3347,10 +3343,10 @@ def phase_probes(device, main_path):
         walls[name] = time.perf_counter() - t0
         for row in rows[1:]:
             if row.get("row") == "ops":
-                row = dict(row, ops=[[n[:60], round(t, 3)]
-                                     for n, t in row["ops"][:5]])
+                row = dict(row, ops=[[n[:60], round(t, 3), dev]
+                                     for n, t, dev in row["ops"][:5]])
             print("    " + json.dumps(row)[:300])
-    launches = {"fused_tail": ft.LAUNCHES, "pack_survivors": compact.LAUNCHES}
+    launches = kernel_launches()
     total = time.perf_counter() - t_start
     print("  phase 14 walls: " + ", ".join(f"{n} {t:.1f} s"
                                            for n, t in walls.items()))

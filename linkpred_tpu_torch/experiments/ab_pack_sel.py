@@ -85,18 +85,18 @@ def main(argv=None) -> list:
     args = parser(__doc__, SIZES).parse_args(argv)
     device = resolve_device(args.device)
     from ..ops import compact
-    from ..predict import scoring
+    from ..utils.profiling import counter
 
     n, kk = args.lanes, args.kk
     rows = Rows("ab_pack_sel", device, lanes=n, kk=kk,
                 finite_frac=args.finite_frac)
     key = torch.as_tensor(make_keys(n, args.finite_frac), device=device)
     fns = arms(key, kk, args.finite_frac)
-    packed = scoring.PACKED_ARM_RUNS
+    packed = counter("select.packed_arm")
     kth = same_keys(key, {"sort_full": fns["sort_full"](),
                           "packed_full": fns["packed_full"]()}, kk,
                     "ab_pack_sel: the whole arms")
-    took = "packed" if scoring.PACKED_ARM_RUNS > packed else "sort"
+    took = "packed" if counter("select.packed_arm") > packed else "sort"
     _, _, cnt = fns["pack"]()
     times = {name: min(ms(fn, device, args.iters)
                        for _ in range(args.repeat))

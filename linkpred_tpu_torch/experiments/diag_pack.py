@@ -38,6 +38,7 @@ def decision(y, plan, request: int, device, rows: Rows):
     from ..ops import compact
     from ..ops.topk import desc_key_score
     from ..predict import api, scoring
+    from ..utils.profiling import counter
 
     k = api._exact_k(plan, request)
     t_pad, cap = plan.num_tiles_padded, plan.cap
@@ -54,9 +55,9 @@ def decision(y, plan, request: int, device, rows: Rows):
     pk, _, cnt = compact.pack_survivors(key, thr)
     count, capacity = int(cnt), pk.shape[0]
     packed = attempt and kk <= count <= capacity
-    before = scoring.PACKED_ARM_RUNS
+    before = counter("select.packed_arm")
     sk, idx = scoring._argselect(key, kk, allow_pack=n_seg == 1)
-    took = "packed" if scoring.PACKED_ARM_RUNS > before else "sort"
+    took = "packed" if counter("select.packed_arm") > before else "sort"
     if took != ("packed" if packed else "sort"):
         raise AssertionError(f"{rows.probe}: _argselect took the {took} "
                              f"arm, the reproduction says otherwise")

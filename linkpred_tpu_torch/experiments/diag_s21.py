@@ -6,7 +6,7 @@ Counterpart of ``experiments/diag_s21.py``, composed of this package's
 bench protocol, LHub-64 Jaccard, the adaptive cap, k = the removed edges /
 2: one warm pass, one profiled pass and its per-op table (the traced result
 equal to the warm one), which arm the engine's selection took in the
-profiled pass (``scoring.PACKED_ARM_RUNS`` / ``SORT_ARM_RUNS``), then
+profiled pass (the counters ``select.packed_arm`` / ``select.sort_arm``), then
 ``diag_pack``'s reproduction of the decision (the threshold, the survivor
 count, the capacity) with ``DIAG_PACK=1`` (the default).  Launches K1 and
 K2.  Dropped from the JAX probe: nothing of the relay applied to it.
@@ -30,13 +30,14 @@ def diagnose(y, plan, request: int, device, rows: Rows, top: int = 30,
              pack: bool = True):
     """The profiled pass with the selection arms it took, then (with
     ``pack``) the pack's decision.  Returns the warm pass's result."""
-    from ..predict import api, scoring
+    from ..predict import api
+    from ..utils.profiling import counter
 
-    packed, sorted_ = scoring.PACKED_ARM_RUNS, scoring.SORT_ARM_RUNS
+    packed, sorted_ = counter("select.packed_arm"), counter("select.sort_arm")
     warm = profile_pass(y, plan, request, device, rows, top)
     rows.emit(row="arms", passes=2, k=api._exact_k(plan, request),
-              packed_arm_runs=scoring.PACKED_ARM_RUNS - packed,
-              sort_arm_runs=scoring.SORT_ARM_RUNS - sorted_)
+              packed_arm_runs=counter("select.packed_arm") - packed,
+              sort_arm_runs=counter("select.sort_arm") - sorted_)
     if pack:
         decision(y, plan, request, device, rows)
     return warm

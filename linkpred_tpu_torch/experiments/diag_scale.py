@@ -85,7 +85,7 @@ def diagnose(y, plan, k: int, device, rows: Rows, repeat: int = 3,
     if trace:
         _, table = profiled(main_fn, top=30)
         rows.emit(row="ops", plan="main",
-                  ops=[[n[:120], t] for n, t in table])
+                  ops=[[n[:120], t, dev] for n, t, dev in table])
     merged = top_result(parts, k)
     want = predict_links(y, "jaccard_coefficient", min_degree1=min_degree1,
                          options=PredictOptions(max_edges=k), plan=plan,

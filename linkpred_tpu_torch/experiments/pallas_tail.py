@@ -9,7 +9,7 @@ that configuration, so this module adds no CUDA source:
 * :func:`xla_tail` is a plain PyTorch copy of the prototype's XLA tail,
   written out on its own (not a call of ``fused_tail_reference``);
 * :func:`pallas_tail` launches K1 (``ops.fused_tail.fused_tail``) at that
-  configuration; its launches count in ``ops.fused_tail.LAUNCHES``;
+  configuration; its launches count in the counter ``k1.launches``;
 * :func:`make_stream` builds the prototype's sorted stream from a numpy
   generator.
 

@@ -42,7 +42,8 @@ def profile_pass(y, plan, k: int, device, rows: Rows, top: int = 30,
               cap=plan.cap, k=k, results=len(warm),
               warm_scoring_ms=warm.scoring_ms,
               traced_scoring_ms=traced.scoring_ms)
-    rows.emit(row="ops", ops=[[name[:120], ms] for name, ms in table])
+    rows.emit(row="ops", ops=[[name[:120], ms, on_card]
+                              for name, ms, on_card in table])
     return warm
 
 

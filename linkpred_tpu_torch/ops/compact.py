@@ -21,23 +21,22 @@ port compacts globally and its check is the global count alone.
 
 ``pack_survivors`` is the wrapper: for CPU tensors it runs
 :func:`pack_survivors_reference`; for CUDA tensors it launches
-``kernels/csrc/compact.cu`` or raises.
+``kernels/csrc/compact.cu`` or raises, and counts the launch in the
+counter ``k2.launches`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .topk import DEAD_KEY
 
 __all__ = ["pack_survivors", "pack_survivors_reference", "sample_threshold",
-           "PACK_RATIO", "LAUNCHES", "MAX_TOTAL"]
+           "PACK_RATIO", "MAX_TOTAL"]
 
 # Survivor capacity as a fraction of the buffer (the reference's value).
 PACK_RATIO = 4
-
-# Launches of the CUDA kernel (the wrapper adds one per launch).
-LAUNCHES = 0
 
 # Lanes the pack takes: its lane indices and count are int32.
 MAX_TOTAL = 1 << 31
@@ -100,15 +99,14 @@ def pack_survivors(key, threshold, ratio: int = None):
     words = lib.lp_pack_scratch_bytes(total) // 4
     buf = torch.empty(2 * span + words + 1, dtype=torch.int32, device=dev)
     pk, pidx = buf[:capacity], buf[span: span + capacity]
-    scratch, count = buf[2 * span:], buf[2 * span + words]
+    scratch, survivors = buf[2 * span:], buf[2 * span + words]
     err = lib.lp_pack_survivors(
         dev.index, key.data_ptr(), threshold.data_ptr(), total, capacity,
-        pk.data_ptr(), pidx.data_ptr(), count.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        pk.data_ptr(), pidx.data_ptr(), survivors.data_ptr(),
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "pack_survivors")
-    global LAUNCHES
-    LAUNCHES += 1
-    return pk, pidx, count
+    count("k2.launches")
+    return pk, pidx, survivors
 
 
 def sample_threshold(key, kk: int, sample_log2: int = 20,

@@ -17,23 +17,21 @@ puts a run's killer first, and a run is alive iff its first slot is real.
 
 ``fused_tail`` is the wrapper.  For CPU tensors it runs
 :func:`fused_tail_reference`, the plain PyTorch version; for CUDA tensors it
-launches ``kernels/csrc/fused_tail.cu`` or raises.
+launches ``kernels/csrc/fused_tail.cu`` or raises, and counts the launch in
+the counter ``k1.launches`` (with killers also in ``k1.killer_launches``;
+``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..predict.metrics import METRICS, MetricSpec, get_metric, maxf2_mask
+from ..utils.profiling import count
 from .segment import cummax, run_boundaries, segment_run_totals
 from .topk import desc_score_key, spread_invalid
 
 __all__ = ["fused_tail", "fused_tail_reference", "fused_tail_supported",
-           "score_keys", "LAUNCHES", "KILLER_LAUNCHES", "MAX_CAP"]
-
-# Launches of the CUDA kernel (the wrapper adds one per launch), and of
-# those, the launches with the killer branch on.
-LAUNCHES = 0
-KILLER_LAUNCHES = 0
+           "score_keys", "MAX_CAP"]
 
 # Lanes a tile may hold: the run start travels as start << 1 | alive.
 MAX_CAP = 1 << 30
@@ -179,7 +177,7 @@ def fused_tail(hi, lo, degs, wts, min_score, *, metrics, w_bits: int,
         buf[o_scratch:].data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused_tail")
-    global LAUNCHES, KILLER_LAUNCHES
-    LAUNCHES += 1
-    KILLER_LAUNCHES += bool(killers)
+    count("k1.launches")
+    if killers:
+        count("k1.killer_launches")
     return skeys, ku, kw

@@ -90,10 +90,9 @@ def _stream_totals(passes, weighted: bool):
 
 
 def _launches():
-    from ..ops import compact
-    from ..ops import fused_tail as ft
+    from ..utils.profiling import counter
 
-    return ft.LAUNCHES, compact.LAUNCHES
+    return counter("k1.launches"), counter("k2.launches")
 
 
 def run_case(case: dict, mesh) -> tuple:

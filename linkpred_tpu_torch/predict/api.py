@@ -22,6 +22,7 @@ import torch
 
 from ..graph import CSRGraph
 from ..utils.device import free_bytes, resolve_device
+from ..utils.profiling import span
 from ..utils.timing import measure_duration
 from .metrics import get_metric
 from .plan import TilePlan, build_plan
@@ -245,7 +246,20 @@ def predict_links_multi(
     place of ``device``, and every rank returns the same result.
     ``key64=False`` is not ported and raises.  A pass whose device bytes
     (:func:`device_bytes`) exceed the free memory raises ``MemoryError``
-    before anything is uploaded."""
+    before anything is uploaded.
+
+    The call is the span ``api.call``; inside it ``plan.build`` (where it
+    builds the plan), ``api.memcheck``, ``api.upload``, ``api.host_hubs``,
+    ``api.warmup``, ``api.score``, ``api.copy_back`` and ``api.merge``
+    (``utils/profiling.py``)."""
+    with span("api.call"):
+        return _predict_links_multi(
+            g, metrics, min_degree1, max_factor2, options, cap, plan,
+            plan_cache, mesh, sources, key64, device)
+
+
+def _predict_links_multi(g, metrics, min_degree1, max_factor2, options, cap,
+                         plan, plan_cache, mesh, sources, key64, device):
     if key64 is False:
         raise NotImplementedError(
             "the port keeps one engine, the int64 key; key64=False (the "
@@ -278,21 +292,24 @@ def predict_links_multi(
     passes = [plan, *_sub_plans(plan)]
     k = _exact_k(plan, max_edges)
     weighted = any(s.needs_weight for s in specs)
-    _check_device_memory(device_bytes(
-        g, passes, len(names), k, weighted, device, mesh,
-        csr_resident=plan_cache is not None
-        and plan_cache.has_device_graph(g, device)), device)
-    if mesh is None:
-        streams = [(p.device_stream(device, weighted), p.tile_start)
-                   for p in passes]
-    else:
-        # each rank uploads only its block; the full stream is never made
-        streams = [shard_stream(p, mesh, weighted) for p in passes]
-    indices = degrees = None
-    if not all(p.packed for p in passes):
-        indices, degrees = (plan_cache.device_graph(g, device)
-                            if plan_cache is not None
-                            else _upload_csr(g, device))
+    with span("api.memcheck"):
+        _check_device_memory(device_bytes(
+            g, passes, len(names), k, weighted, device, mesh,
+            csr_resident=plan_cache is not None
+            and plan_cache.has_device_graph(g, device)), device)
+    with span("api.upload"):
+        if mesh is None:
+            streams = [(p.device_stream(device, weighted), p.tile_start)
+                       for p in passes]
+        else:
+            # each rank uploads only its block; the full stream is never
+            # made
+            streams = [shard_stream(p, mesh, weighted) for p in passes]
+        indices = degrees = None
+        if not all(p.packed for p in passes):
+            indices, degrees = (plan_cache.device_graph(g, device)
+                                if plan_cache is not None
+                                else _upload_csr(g, device))
 
     def run_scoring():
         out = []
@@ -313,9 +330,10 @@ def predict_links_multi(
     host_rows, host_ms = {}, 0.0
     if plan.host_src.size:
         t0 = time.perf_counter()
-        host_rows = score_huge_sources_host_multi(
-            g, plan.host_src, specs, min_degree1, max_factor2, o.min_score,
-            k=max_edges, upper_only=plan.upper_only)
+        with span("api.host_hubs"):
+            host_rows = score_huge_sources_host_multi(
+                g, plan.host_src, specs, min_degree1, max_factor2,
+                o.min_score, k=max_edges, upper_only=plan.upper_only)
         host_ms = (time.perf_counter() - t0) * 1e3
 
     ts, tops = measure_duration(run_scoring, o.repeat, device=device)
@@ -324,23 +342,25 @@ def predict_links_multi(
     results = {}
     for i, name in enumerate(names):
         t0 = time.perf_counter()
-        parts = [(t.scores[i].cpu().numpy(), t.u[i].cpu().numpy(),
-                  t.v[i].cpu().numpy()) for t in tops]
+        with span("api.copy_back"):
+            parts = [(t.scores[i].cpu().numpy(), t.u[i].cpu().numpy(),
+                      t.v[i].cpu().numpy()) for t in tops]
         t1 = time.perf_counter()
-        if name in host_rows:
-            parts.append(host_rows[name])
-        scores, us, vs = (np.concatenate(x) for x in zip(*parts))
-        valid = np.isfinite(scores)
-        scores, us, vs = scores[valid], us[valid], vs[valid]
-        order = np.argsort(-scores, kind="stable")[:max_edges]
-        t2 = time.perf_counter()
-        results[name] = PredictResult(
-            u=us[order].astype(np.int32), v=vs[order].astype(np.int32),
-            score=scores[order].astype(np.float32),
-            time_ms=ts / len(names) + (t2 - t1) * 1e3,
-            scoring_ms=ts / len(names),
-            transfer_ms=(t1 - t0) * 1e3,
-        )
+        with span("api.merge"):
+            if name in host_rows:
+                parts.append(host_rows[name])
+            scores, us, vs = (np.concatenate(x) for x in zip(*parts))
+            valid = np.isfinite(scores)
+            scores, us, vs = scores[valid], us[valid], vs[valid]
+            order = np.argsort(-scores, kind="stable")[:max_edges]
+            t2 = time.perf_counter()
+            results[name] = PredictResult(
+                u=us[order].astype(np.int32), v=vs[order].astype(np.int32),
+                score=scores[order].astype(np.float32),
+                time_ms=ts / len(names) + (t2 - t1) * 1e3,
+                scoring_ms=ts / len(names),
+                transfer_ms=(t1 - t0) * 1e3,
+            )
     return results
 
 
@@ -372,7 +392,13 @@ def predict_links(
 
 
 def top_per_source(result: PredictResult, k: int) -> PredictResult:
-    """Keep the best ``k`` predictions per source vertex (serving helper)."""
+    """Keep the best ``k`` predictions per source vertex (serving helper);
+    the span ``api.top_per_source``."""
+    with span("api.top_per_source"):
+        return _top_per_source(result, k)
+
+
+def _top_per_source(result: PredictResult, k: int) -> PredictResult:
     if len(result) == 0 or k <= 0:
         empty = np.empty(0)
         return PredictResult(empty.astype(np.int32), empty.astype(np.int32),

@@ -28,6 +28,7 @@ import torch
 from ..graph import CSRGraph
 from ..utils.device import resolve_device
 from ..utils.numeric import next_pow2 as _next_pow2
+from ..utils.profiling import span
 
 __all__ = ["TilePlan", "build_plan", "KILL"]
 
@@ -227,7 +228,21 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
     stream's ceiling from ``device``'s memory (``0`` forces the edge stream).
     ``device`` sets the memory budgets only (the card by default; a
     missing card raises); planning is host work.
-    ``_keep_src``/``_allow_huge`` are internal (the hub sub-plan)."""
+    ``_keep_src``/``_allow_huge`` are internal (the hub sub-plan).
+
+    The plan is the span ``plan.build``, its stages ``plan.firsthop``
+    (the filtered first hop and the killer list), ``plan.route`` (the cap,
+    per-source counts and the hub routing, holding the hub sub-plan's own
+    ``plan.build``), then ``plan.expand`` and ``plan.emit`` (the packed
+    slot stream: its expansion, then the degree split, padding, tiles and
+    side plan) or ``plan.edge_stream`` (``utils/profiling.py``)."""
+    with span("plan.build"):
+        return _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget,
+                           sources, _keep_src, _allow_huge, device)
+
+
+def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
+                _keep_src, _allow_huge, device) -> TilePlan:
     device = resolve_device(device)
     if slot_budget is None:
         slot_budget = _slot_budget(device)
@@ -250,91 +265,96 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
     # Stage 1: the filtered first-hop edge list and the killer list (one
     # pseudo-edge per active source; its count enters the per-source totals
     # that drive cap selection and hub routing).
-    fh = (_native_firsthop(g, min_degree1, upper_only)
-          if sources is None and _keep_src is None else None)
-    if fh is not None:
-        src, mid, skip, kuniq, kskip = fh
-    else:
-        src = np.repeat(np.arange(n, dtype=np.int64), deg)
-        mid = indices[: g.m]
-        dmid = deg[mid]
-        keep = dmid > 0
-        if min_degree1:
-            keep &= dmid <= min_degree1
-        if sources is not None:
-            keep &= np.isin(src, np.asarray(sources, dtype=np.int64))
-        if _keep_src is not None:
-            keep &= np.isin(src, np.asarray(_keep_src, dtype=np.int64))
-        src, mid = src[keep], mid[keep]
-
-        if upper_only and src.size:
-            skip = np.searchsorted(gkeys(), mid * n + src, side="right") \
-                - offsets64[mid]
-            nz = deg[mid] - skip > 0
-            src, mid, skip = src[nz], mid[nz], skip[nz]
+    with span("plan.firsthop"):
+        fh = (_native_firsthop(g, min_degree1, upper_only)
+              if sources is None and _keep_src is None else None)
+        if fh is not None:
+            src, mid, skip, kuniq, kskip = fh
         else:
-            skip = np.zeros(src.shape[0], dtype=np.int64)
+            src = np.repeat(np.arange(n, dtype=np.int64), deg)
+            mid = indices[: g.m]
+            dmid = deg[mid]
+            keep = dmid > 0
+            if min_degree1:
+                keep &= dmid <= min_degree1
+            if sources is not None:
+                keep &= np.isin(src, np.asarray(sources, dtype=np.int64))
+            if _keep_src is not None:
+                keep &= np.isin(src,
+                                np.asarray(_keep_src, dtype=np.int64))
+            src, mid = src[keep], mid[keep]
 
-        uniq = np.unique(src)
-        if upper_only and uniq.size:
-            kskip = np.searchsorted(gkeys(), uniq * n + uniq, side="right") \
-                - offsets64[uniq]
-            knz = deg[uniq] - kskip > 0
-            kuniq, kskip = uniq[knz], kskip[knz]
-        else:
-            kuniq = uniq
-            kskip = np.zeros(uniq.shape[0], dtype=np.int64)
-    kwork = deg[kuniq] - kskip
-    work = deg[mid] - skip
+            if upper_only and src.size:
+                skip = np.searchsorted(gkeys(), mid * n + src,
+                                       side="right") - offsets64[mid]
+                nz = deg[mid] - skip > 0
+                src, mid, skip = src[nz], mid[nz], skip[nz]
+            else:
+                skip = np.zeros(src.shape[0], dtype=np.int64)
 
-    if cap is None:
-        est = int(work.sum() + kwork.sum())
-        cap = int(min(max(_next_pow2(-(-est // AUTO_CAP_TILES)),
-                          AUTO_CAP_MIN), AUTO_CAP_MAX))
+            uniq = np.unique(src)
+            if upper_only and uniq.size:
+                kskip = np.searchsorted(gkeys(), uniq * n + uniq,
+                                        side="right") - offsets64[uniq]
+                knz = deg[uniq] - kskip > 0
+                kuniq, kskip = uniq[knz], kskip[knz]
+            else:
+                kuniq = uniq
+                kskip = np.zeros(uniq.shape[0], dtype=np.int64)
+        kwork = deg[kuniq] - kskip
+        work = deg[mid] - skip
 
-    # Per-source slot counts; sources too big for one tile are "huge".
-    w_u = (np.bincount(src, weights=work.astype(np.float64), minlength=n)
-           + np.bincount(kuniq, weights=kwork.astype(np.float64),
-                         minlength=n)).astype(np.int64)
-    huge_src = np.nonzero(w_u > cap)[0]
-    huge_slots = int(w_u[huge_src].sum())
-    huge_plan = None
-    host_src = np.empty(0, dtype=np.int64)
-    dev_huge_slots = 0
-    if huge_src.size:
-        not_huge = ~np.isin(src, huge_src)
-        src, mid, work, skip = (src[not_huge], mid[not_huge],
-                                work[not_huge], skip[not_huge])
-        not_huge_k = ~np.isin(kuniq, huge_src)
-        kuniq, kskip, kwork = (kuniq[not_huge_k], kskip[not_huge_k],
-                               kwork[not_huge_k])
-        huge_sizes = w_u[huge_src]
-        w_u = w_u.copy()
-        w_u[huge_src] = 0
-        if _allow_huge:
-            # hubs get a sub-plan whose cap holds the biggest one in a tile;
-            # beyond HUGE_DEVICE_MAX they go to host_src
-            on_device = huge_sizes <= _huge_device_max(device)
-            dev_huge = huge_src[on_device]
-            host_src = huge_src[~on_device]
-            dev_huge_slots = int(huge_sizes[on_device].sum())
-            if dev_huge.size:
-                huge_plan = build_plan(
-                    g, min_degree1,
-                    cap=_next_pow2(int(huge_sizes[on_device].max())),
-                    pad_tiles_pow2=False, slot_budget=slot_budget,
-                    sources=sources, _keep_src=dev_huge, _allow_huge=False,
-                    device=device)
+    with span("plan.route"):
+        if cap is None:
+            est = int(work.sum() + kwork.sum())
+            cap = int(min(max(_next_pow2(-(-est // AUTO_CAP_TILES)),
+                              AUTO_CAP_MIN), AUTO_CAP_MAX))
 
-    m1 = src.shape[0] + kuniq.shape[0]
-    total_slots = int(work.sum() + kwork.sum())
+        # Per-source slot counts; sources too big for one tile are "huge".
+        w_u = (np.bincount(src, weights=work.astype(np.float64),
+                           minlength=n)
+               + np.bincount(kuniq, weights=kwork.astype(np.float64),
+                             minlength=n)).astype(np.int64)
+        huge_src = np.nonzero(w_u > cap)[0]
+        huge_slots = int(w_u[huge_src].sum())
+        huge_plan = None
+        host_src = np.empty(0, dtype=np.int64)
+        dev_huge_slots = 0
+        if huge_src.size:
+            not_huge = ~np.isin(src, huge_src)
+            src, mid, work, skip = (src[not_huge], mid[not_huge],
+                                    work[not_huge], skip[not_huge])
+            not_huge_k = ~np.isin(kuniq, huge_src)
+            kuniq, kskip, kwork = (kuniq[not_huge_k], kskip[not_huge_k],
+                                   kwork[not_huge_k])
+            huge_sizes = w_u[huge_src]
+            w_u = w_u.copy()
+            w_u[huge_src] = 0
+            if _allow_huge:
+                # hubs get a sub-plan whose cap holds the biggest one in a
+                # tile; beyond HUGE_DEVICE_MAX they go to host_src
+                on_device = huge_sizes <= _huge_device_max(device)
+                dev_huge = huge_src[on_device]
+                host_src = huge_src[~on_device]
+                dev_huge_slots = int(huge_sizes[on_device].sum())
+                if dev_huge.size:
+                    huge_plan = build_plan(
+                        g, min_degree1,
+                        cap=_next_pow2(int(huge_sizes[on_device].max())),
+                        pad_tiles_pow2=False, slot_budget=slot_budget,
+                        sources=sources, _keep_src=dev_huge,
+                        _allow_huge=False, device=device)
 
-    deg16 = bool(deg.max(initial=0) < (1 << 16))
-    w_bits = max(int(max(n - 1, 1)).bit_length(), 1)
-    keyed = w_bits + 1 <= 31             # one spare value range for pads
-    # The budget bounds the main stream at its padded size plus the hub
-    # sub-plan's stream, which is resident beside it.
-    packed = keyed and total_slots * 9 // 8 + dev_huge_slots <= slot_budget
+        m1 = src.shape[0] + kuniq.shape[0]
+        total_slots = int(work.sum() + kwork.sum())
+
+        deg16 = bool(deg.max(initial=0) < (1 << 16))
+        w_bits = max(int(max(n - 1, 1)).bit_length(), 1)
+        keyed = w_bits + 1 <= 31             # one spare value range for pads
+        # The budget bounds the main stream at its padded size plus the hub
+        # sub-plan's stream, which is resident beside it.
+        packed = (keyed and total_slots * 9 // 8 + dev_huge_slots
+                  <= slot_budget)
 
     def partition(prefix, cap_s=None):
         # source-aligned greedy partition: each tile's slot total <= cap
@@ -357,47 +377,50 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
     side_plan = None
     if packed:
         # host-side slot expansion with dead-slot removal (w == u, w ∈ N(u))
-        expanded = _native_expand(g, src, mid, skip, int(work.sum()), deg16)
-        if expanded is not None:
-            kept, sw, su, sudeg, swdeg_k, smid, cnt_u = expanded
-        else:
-            work32 = work.astype(np.int64)
-            eprefix = np.cumsum(work32) - work32
-            eloc = np.repeat(np.arange(src.shape[0], dtype=np.int64), work32)
-            s_iota = np.arange(int(work.sum()), dtype=np.int64)
-            j = s_iota - eprefix[eloc]
-            adr = offsets64[mid][eloc] + skip[eloc] + j
-            wv = indices[adr]
-            slot_src = np.repeat(src, work32)
-            kq = slot_src * n + wv
-            gk = gkeys()
-            pos = np.searchsorted(gk, kq)
-            is_edge = np.zeros(kq.shape[0], dtype=bool)
-            if gk.size:
-                inb = pos < gk.size
-                is_edge[inb] = gk[pos[inb]] == kq[inb]
-            keep_s = ~is_edge & (wv != slot_src)
-            wv = wv[keep_s]
-            slot_src = slot_src[keep_s]
-            smid = deg[np.repeat(mid, work32)[keep_s]].astype(np.int32)
-            kept = int(wv.shape[0])
-            cnt_u = np.bincount(slot_src, minlength=n).astype(np.int64)
-            sw = wv.astype(np.int32)
-            su = slot_src.astype(np.int32)
-            if deg16:
-                # the pair (udeg << 16 | wdeg), packed as uint32 bits
-                pair = (deg[slot_src].astype(np.uint32) << np.uint32(16)) \
-                    | deg[wv].astype(np.uint32)
-                sudeg = pair.view(np.int32)
-                swdeg_k = None
+        with span("plan.expand"):
+            expanded = _native_expand(g, src, mid, skip, int(work.sum()),
+                                      deg16)
+            if expanded is not None:
+                kept, sw, su, sudeg, swdeg_k, smid, cnt_u = expanded
             else:
-                sudeg = deg[slot_src].astype(np.int32)
-                swdeg_k = deg[wv].astype(np.int32)
+                work32 = work.astype(np.int64)
+                eprefix = np.cumsum(work32) - work32
+                eloc = np.repeat(np.arange(src.shape[0], dtype=np.int64),
+                                 work32)
+                s_iota = np.arange(int(work.sum()), dtype=np.int64)
+                j = s_iota - eprefix[eloc]
+                adr = offsets64[mid][eloc] + skip[eloc] + j
+                wv = indices[adr]
+                slot_src = np.repeat(src, work32)
+                kq = slot_src * n + wv
+                gk = gkeys()
+                pos = np.searchsorted(gk, kq)
+                is_edge = np.zeros(kq.shape[0], dtype=bool)
+                if gk.size:
+                    inb = pos < gk.size
+                    is_edge[inb] = gk[pos[inb]] == kq[inb]
+                keep_s = ~is_edge & (wv != slot_src)
+                wv = wv[keep_s]
+                slot_src = slot_src[keep_s]
+                smid = deg[np.repeat(mid, work32)[keep_s]].astype(np.int32)
+                kept = int(wv.shape[0])
+                cnt_u = np.bincount(slot_src, minlength=n).astype(np.int64)
+                sw = wv.astype(np.int32)
+                su = slot_src.astype(np.int32)
+                if deg16:
+                    # the pair (udeg << 16 | wdeg), packed as uint32 bits
+                    pair = (deg[slot_src].astype(np.uint32)
+                            << np.uint32(16)) | deg[wv].astype(np.uint32)
+                    sudeg = pair.view(np.int32)
+                    swdeg_k = None
+                else:
+                    sudeg = deg[slot_src].astype(np.int32)
+                    swdeg_k = deg[wv].astype(np.int32)
 
         def _emit(sw_s, su_s, sudeg_s, swdeg_s, smid_s, cnt_u_s, cap_s,
                   deg16_s, pad4):
-            """Pad one slot sub-stream and partition it into tiles of at most
-            cap_s slots."""
+            """Pad one slot sub-stream and partition it into tiles of at
+            most cap_s slots."""
             kept_s = int(sw_s.shape[0])
             prefix_s = np.zeros(n + 1, dtype=np.int64)
             np.cumsum(cnt_u_s, out=prefix_s[1:])
@@ -426,88 +449,95 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
                 t_start[:] = 0
             return z_w, z_u, z_ud, z_wd, z_md, t_start, nt, kept_s
 
-        # Degree-regime split: slots whose pair degrees fit 16 bits keep the
-        # packed pair; the rest ride a side plan with wide degrees.
-        split_hi = None
-        if not deg16:
-            hi = (sudeg >= (1 << 16)) | (swdeg_k >= (1 << 16))
-            n_hi = int(np.count_nonzero(hi))
-            if n_hi == 0:
-                pair = (sudeg.astype(np.uint32) << np.uint32(16)) \
-                    | swdeg_k.astype(np.uint32)
-                sudeg, swdeg_k = pair.view(np.int32), None
-                deg16 = True
-            elif n_hi < kept:
-                lo = ~hi
-                cnt_hi = np.bincount(su[hi], minlength=n).astype(np.int64)
-                split_hi = (sw[hi], su[hi], sudeg[hi], swdeg_k[hi],
-                            smid[hi], cnt_hi)
-                pair = (sudeg[lo].astype(np.uint32) << np.uint32(16)) \
-                    | swdeg_k[lo].astype(np.uint32)
-                sw, su, smid = sw[lo], su[lo], smid[lo]
-                sudeg, swdeg_k = pair.view(np.int32), None
-                cnt_u = cnt_u.astype(np.int64) - cnt_hi
-                deg16 = True
+        with span("plan.emit"):
+            # Degree-regime split: slots whose pair degrees fit 16 bits keep
+            # the packed pair; the rest ride a side plan with wide degrees.
+            split_hi = None
+            if not deg16:
+                hi = (sudeg >= (1 << 16)) | (swdeg_k >= (1 << 16))
+                n_hi = int(np.count_nonzero(hi))
+                if n_hi == 0:
+                    pair = (sudeg.astype(np.uint32) << np.uint32(16)) \
+                        | swdeg_k.astype(np.uint32)
+                    sudeg, swdeg_k = pair.view(np.int32), None
+                    deg16 = True
+                elif n_hi < kept:
+                    lo = ~hi
+                    cnt_hi = np.bincount(su[hi],
+                                         minlength=n).astype(np.int64)
+                    split_hi = (sw[hi], su[hi], sudeg[hi], swdeg_k[hi],
+                                smid[hi], cnt_hi)
+                    pair = (sudeg[lo].astype(np.uint32) << np.uint32(16)) \
+                        | swdeg_k[lo].astype(np.uint32)
+                    sw, su, smid = sw[lo], su[lo], smid[lo]
+                    sudeg, swdeg_k = pair.view(np.int32), None
+                    cnt_u = cnt_u.astype(np.int64) - cnt_hi
+                    deg16 = True
 
-        (slot_w, slot_u, slot_udeg, slot_wdeg, slot_middeg, tile_slot_start,
-         num_tiles, total_slots) = _emit(sw, su, sudeg, swdeg_k, smid, cnt_u,
-                                         cap, deg16, pad_tiles_pow2)
+            (slot_w, slot_u, slot_udeg, slot_wdeg, slot_middeg,
+             tile_slot_start, num_tiles, total_slots) = _emit(
+                sw, su, sudeg, swdeg_k, smid, cnt_u, cap, deg16,
+                pad_tiles_pow2)
 
-        if split_hi is not None:
-            hw, hu, hud, hwd, hmd, cnt_hi = split_hi
-            hi_total = int(hw.shape[0])
-            cap_h = int(min(cap, max(
-                _next_pow2(max(int(cnt_hi.max()), 1)),
-                _next_pow2(-(-hi_total // AUTO_CAP_TILES)))))
-            (zw, zu, zud, zwd, zmd, t_s, nt_h, tot_h) = _emit(
-                hw, hu, hud, hwd, hmd, cnt_hi, cap_h, False, False)
-            dummy1 = np.zeros(1, dtype=np.int32)
-            side_plan = TilePlan(
-                fe_work=dummy1, fe_adr=dummy1, fe_usrc=dummy1,
-                fe_middeg=dummy1, tile_edge_start=t_s.copy(), cap=cap_h,
-                num_tiles=nt_h, huge_src=np.empty(0, dtype=np.int64),
-                total_slots=tot_h, huge_slots=0, w_bits=w_bits,
-                upper_only=upper_only, deg16=False, keyed=keyed, packed=True,
-                slot_w=zw, slot_u=zu, slot_udeg=zud, slot_wdeg=zwd,
-                slot_middeg=zmd, tile_slot_start=t_s)
-        tile_edge_start = tile_slot_start.copy()
-        fe_work = fe_adr = fe_usrc = fe_middeg = np.zeros(1, dtype=np.int32)
+            if split_hi is not None:
+                hw, hu, hud, hwd, hmd, cnt_hi = split_hi
+                hi_total = int(hw.shape[0])
+                cap_h = int(min(cap, max(
+                    _next_pow2(max(int(cnt_hi.max()), 1)),
+                    _next_pow2(-(-hi_total // AUTO_CAP_TILES)))))
+                (zw, zu, zud, zwd, zmd, t_s, nt_h, tot_h) = _emit(
+                    hw, hu, hud, hwd, hmd, cnt_hi, cap_h, False, False)
+                dummy1 = np.zeros(1, dtype=np.int32)
+                side_plan = TilePlan(
+                    fe_work=dummy1, fe_adr=dummy1, fe_usrc=dummy1,
+                    fe_middeg=dummy1, tile_edge_start=t_s.copy(), cap=cap_h,
+                    num_tiles=nt_h, huge_src=np.empty(0, dtype=np.int64),
+                    total_slots=tot_h, huge_slots=0, w_bits=w_bits,
+                    upper_only=upper_only, deg16=False, keyed=keyed,
+                    packed=True,
+                    slot_w=zw, slot_u=zu, slot_udeg=zud, slot_wdeg=zwd,
+                    slot_middeg=zmd, tile_slot_start=t_s)
+            tile_edge_start = tile_slot_start.copy()
+            fe_work = fe_adr = fe_usrc = fe_middeg = np.zeros(
+                1, dtype=np.int32)
     else:
         # edge stream: killer rows interleaved killers-first per source
-        esrc = np.concatenate([src, kuniq])
-        emid = np.concatenate([mid, kuniq])
-        eskip = np.concatenate([skip, kskip])
-        real = np.concatenate([np.ones(src.shape[0], dtype=bool),
-                               np.zeros(kuniq.shape[0], dtype=bool)])
-        order = np.lexsort((emid, real, esrc))
-        esrc, emid, real, eskip = (esrc[order], emid[order], real[order],
-                                   eskip[order])
-        ework = deg[emid] - eskip
+        with span("plan.edge_stream"):
+            esrc = np.concatenate([src, kuniq])
+            emid = np.concatenate([mid, kuniq])
+            eskip = np.concatenate([skip, kskip])
+            real = np.concatenate([np.ones(src.shape[0], dtype=bool),
+                                   np.zeros(kuniq.shape[0], dtype=bool)])
+            order = np.lexsort((emid, real, esrc))
+            esrc, emid, real, eskip = (esrc[order], emid[order],
+                                       real[order], eskip[order])
+            ework = deg[emid] - eskip
 
-        row_prefix = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(w_u, out=row_prefix[1:])
-        starts, ends = partition(row_prefix)
-        num_tiles = max(len(starts), 1)
-        t_pad = _pad_tiles(num_tiles) if pad_tiles_pow2 else num_tiles
+            row_prefix = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(w_u, out=row_prefix[1:])
+            starts, ends = partition(row_prefix)
+            num_tiles = max(len(starts), 1)
+            t_pad = _pad_tiles(num_tiles) if pad_tiles_pow2 else num_tiles
 
-        row_edge_start = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(np.bincount(esrc, minlength=n), out=row_edge_start[1:])
-        tile_edge_start = np.full(t_pad + 1, m1, dtype=np.int32)
-        if starts:
-            bounds = np.asarray(starts + [ends[-1]], dtype=np.int64)
-            tile_edge_start[: num_tiles + 1] = row_edge_start[bounds]
-        else:
-            tile_edge_start[:] = 0
+            row_edge_start = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(np.bincount(esrc, minlength=n),
+                      out=row_edge_start[1:])
+            tile_edge_start = np.full(t_pad + 1, m1, dtype=np.int32)
+            if starts:
+                bounds = np.asarray(starts + [ends[-1]], dtype=np.int64)
+                tile_edge_start[: num_tiles + 1] = row_edge_start[bounds]
+            else:
+                tile_edge_start[:] = 0
 
-        m1_pad = _pad_bucket(m1 + cap)
-        fe_work = np.zeros(m1_pad, dtype=np.int32)
-        fe_adr = np.zeros(m1_pad, dtype=np.int32)
-        fe_usrc = np.zeros(m1_pad, dtype=np.int32)
-        fe_middeg = np.zeros(m1_pad, dtype=np.int32)
-        fe_work[:m1] = ework
-        fe_adr[:m1] = offsets64[emid] + eskip
-        fe_usrc[:m1] = np.where(real, esrc, ~esrc)
-        fe_middeg[:m1] = deg[emid]
+            m1_pad = _pad_bucket(m1 + cap)
+            fe_work = np.zeros(m1_pad, dtype=np.int32)
+            fe_adr = np.zeros(m1_pad, dtype=np.int32)
+            fe_usrc = np.zeros(m1_pad, dtype=np.int32)
+            fe_middeg = np.zeros(m1_pad, dtype=np.int32)
+            fe_work[:m1] = ework
+            fe_adr[:m1] = offsets64[emid] + eskip
+            fe_usrc[:m1] = np.where(real, esrc, ~esrc)
+            fe_middeg[:m1] = deg[emid]
 
     return TilePlan(
         fe_work=fe_work,

@@ -22,6 +22,16 @@ large scans select per segment of tiles and merge the winners.  Hub sources
 too big for the device are scored on the host
 (``score_huge_sources_host_multi``).
 
+Spans (``utils/profiling.py``): ``scan.pass`` (one :func:`scan_tiles`);
+inside it ``scan.tile`` (one non-empty tile, counted in ``scan.tiles``),
+holding ``tile.gather`` (the window reads, or the edge tile's slot map and
+gathers), ``tile.sort`` (:func:`keyed_sort`) and ``tile.k1`` (the
+:func:`fused_tail` wrapper); ``scan.select`` (a selection with its
+survivor pack and the host sync on its count) and
+``scan.merge_segments``.  Counters: ``select.packed_arm`` and
+``select.sort_arm`` (which arm of the packed selection ran),
+``scan.segments`` (the segments a segmented selection selected over).
+
 Not ported: the u32 engine (``key64=False``; the port keeps one engine) and
 the mesh.  The reference's chunked dispatch existed only for its device
 relay.
@@ -38,6 +48,7 @@ from ..ops.compact import pack_survivors, sample_threshold
 from ..ops.fused_tail import fused_tail, score_keys
 from ..ops.segment import run_boundaries, segment_run_totals
 from ..ops.topk import TopK, desc_key_score, desc_score_key, spread_invalid
+from ..utils.profiling import count, span
 from .metrics import METRICS, maxf2_mask
 from .plan import KILL
 
@@ -56,13 +67,6 @@ SEG_LANES = None
 # Smallest selection buffer that takes the survivor pack (the reference's
 # value); tests patch it to reach the pack at small sizes.
 SEL_PACK_MIN = 1 << 22
-
-# Which arm of _argselect_packed ran, and how many segments the segmented
-# selection of scan_tiles selected over (plain counts, read by the smoke
-# run).
-PACKED_ARM_RUNS = 0
-SORT_ARM_RUNS = 0
-SEGMENT_RUNS = 0
 
 
 def _seg_lanes(device) -> int:
@@ -114,10 +118,12 @@ def _keyed_sort_reduce(key, upay, udeg, wdeg, wts, metrics, *, w_bits: int,
     key, so runs are (w, u) pairs; with ``killers`` the low bit of ``upay``
     is the real/killer flag, so a run's killers sort first.  Returns
     ``(skeys [M, cap], ku, kw)``."""
-    hi, lo, degs, wts = keyed_sort(key, upay, udeg, wdeg, wts, deg16=deg16,
-                                   predpacked=predpacked)
-    return fused_tail(hi, lo, degs, wts, min_score, metrics=metrics,
-                      w_bits=w_bits, n=n, maxf2=maxf2, killers=killers)
+    with span("tile.sort"):
+        hi, lo, degs, wts = keyed_sort(key, upay, udeg, wdeg, wts,
+                                       deg16=deg16, predpacked=predpacked)
+    with span("tile.k1"):
+        return fused_tail(hi, lo, degs, wts, min_score, metrics=metrics,
+                          w_bits=w_bits, n=n, maxf2=maxf2, killers=killers)
 
 
 def tile_candidates_packed(
@@ -128,22 +134,22 @@ def tile_candidates_packed(
     """Score one tile of the packed slot stream: every per-slot quantity is a
     window read (no gathers before the sort); with ``deg16`` the degree pair
     is pre-packed in ``slot_udeg``.  Returns ``(skeys [M, cap], ku, kw)``."""
-    iota = torch.arange(cap, dtype=torch.int32, device=slot_w.device)
-
     def window(a):
         return a[t_start: t_start + cap]
 
-    src = window(slot_u)
-    udeg = window(slot_udeg)
-    wdeg = udeg if deg16 else window(slot_wdeg)
-    lanes = iota < (t_end - t_start)
-    key = torch.where(lanes, window(slot_w), _pad_key(iota, w_bits))
-    weighted = [m for m in metrics if m.needs_weight]
-    wts = []
-    if weighted:
-        middeg = window(slot_middeg)
-        wts = [torch.where(lanes, m.weight_from_degree(middeg), 0.0)
-               for m in weighted]
+    with span("tile.gather"):
+        iota = torch.arange(cap, dtype=torch.int32, device=slot_w.device)
+        src = window(slot_u)
+        udeg = window(slot_udeg)
+        wdeg = udeg if deg16 else window(slot_wdeg)
+        lanes = iota < (t_end - t_start)
+        key = torch.where(lanes, window(slot_w), _pad_key(iota, w_bits))
+        weighted = [m for m in metrics if m.needs_weight]
+        wts = []
+        if weighted:
+            middeg = window(slot_middeg)
+            wts = [torch.where(lanes, m.weight_from_degree(middeg), 0.0)
+                   for m in weighted]
     return _keyed_sort_reduce(key, src, udeg, wdeg, wts, metrics,
                               w_bits=w_bits, n=n, maxf2=maxf2,
                               min_score=min_score, deg16=deg16)
@@ -266,16 +272,18 @@ def tile_candidates(indices, degrees, stream, t_start: int, t_end: int, *,
     ``w_bits == 0``: the sentinel two-key branch.  Returns
     ``(skeys [M, cap], ku, kw)``."""
     if w_bits:
-        key, upay, udeg, wdeg, wts = edge_keys(
-            indices, degrees, stream, t_start, t_end, metrics=metrics,
-            cap=cap, w_bits=w_bits, upper_only=upper_only)
+        with span("tile.gather"):
+            key, upay, udeg, wdeg, wts = edge_keys(
+                indices, degrees, stream, t_start, t_end, metrics=metrics,
+                cap=cap, w_bits=w_bits, upper_only=upper_only)
         return _keyed_sort_reduce(key, upay, udeg, wdeg, wts, metrics,
                                   w_bits=w_bits, n=degrees.shape[0],
                                   maxf2=maxf2, min_score=min_score,
                                   deg16=deg16, killers=True,
                                   predpacked=False)
-    slots = _edge_slots(indices, stream, t_start, t_end, cap=cap,
-                        weighted=any(m.needs_weight for m in metrics))
+    with span("tile.gather"):
+        slots = _edge_slots(indices, stream, t_start, t_end, cap=cap,
+                            weighted=any(m.needs_weight for m in metrics))
     return _sentinel_reduce(degrees, slots, metrics, upper_only=upper_only,
                             maxf2=maxf2, min_score=min_score)
 
@@ -294,16 +302,15 @@ def _argselect_packed(key, kk: int):
     pack, sorting only the survivors; when the sample undershot
     (count < kk) or the survivors overflow the pack (count > capacity), the
     full sort runs instead.  One host sync reads the count."""
-    global PACKED_ARM_RUNS, SORT_ARM_RUNS
     thr, _ = sample_threshold(key, kk)
     pk, pidx, cnt = pack_survivors(key, thr)
-    count = int(cnt)
-    if kk <= count <= pk.shape[0]:
-        PACKED_ARM_RUNS += 1
+    survivors = int(cnt)
+    if kk <= survivors <= pk.shape[0]:
+        count("select.packed_arm")
         # only the live prefix needs sorting (shapes may vary here)
-        sk, order = torch.sort(pk[:count])
+        sk, order = torch.sort(pk[:survivors])
         return sk[:kk], pidx[order[:kk]].to(torch.int64)
-    SORT_ARM_RUNS += 1
+    count("select.sort_arm")
     return _argselect_sort(key, kk)
 
 
@@ -375,7 +382,9 @@ def _fill_buffer(tile_fn, tile_start, tiles, num_metrics: int, cap: int,
         s, e = (int(tile_start[t]), int(tile_start[t + 1])) \
             if t < t_pad else (0, 0)
         if s < e:
-            keys[:, sl], us[sl], vs[sl] = tile_fn(s, e)
+            count("scan.tiles")
+            with span("scan.tile"):
+                keys[:, sl], us[sl], vs[sl] = tile_fn(s, e)
         else:
             keys[:, sl] = empty_key
     return keys, us, vs
@@ -391,21 +400,27 @@ def scan_tiles(tile_fn, tile_start, k: int, num_metrics: int, cap: int,
     tiles and merge the segments' winners (exact: a global winner is in its
     segment's top k); segments skip the survivor pack, as in the
     reference."""
-    t_pad = len(tile_start) - 1
-    n_seg, seg = _segments(t_pad, cap, num_metrics, device)
-    if n_seg == 1:
-        return _select_topk(*_fill_buffer(tile_fn, tile_start, range(t_pad),
-                                          num_metrics, cap, device), k)
-    # a segment selects over all its lanes, ghost or not
-    global SEGMENT_RUNS
-    kk = min(k, seg * cap)
-    SEGMENT_RUNS += n_seg
-    tops = [_select_topk(*_fill_buffer(tile_fn, tile_start,
-                                       range(s * seg, (s + 1) * seg),
-                                       num_metrics, cap, device), kk,
-                         allow_pack=False) for s in range(n_seg)]
-    return _merge_stacked(TopK(*(torch.stack(parts) for parts in zip(*tops))),
-                          k)
+    with span("scan.pass"):
+        t_pad = len(tile_start) - 1
+        n_seg, seg = _segments(t_pad, cap, num_metrics, device)
+        if n_seg == 1:
+            buf = _fill_buffer(tile_fn, tile_start, range(t_pad), num_metrics,
+                               cap, device)
+            with span("scan.select"):
+                return _select_topk(*buf, k)
+        # a segment selects over all its lanes, ghost or not
+        kk = min(k, seg * cap)
+        count("scan.segments", n_seg)
+        tops = []
+        for s in range(n_seg):
+            buf = _fill_buffer(tile_fn, tile_start,
+                               range(s * seg, (s + 1) * seg), num_metrics,
+                               cap, device)
+            with span("scan.select"):
+                tops.append(_select_topk(*buf, kk, allow_pack=False))
+        with span("scan.merge_segments"):
+            return _merge_stacked(
+                TopK(*(torch.stack(parts) for parts in zip(*tops))), k)
 
 
 def tile_scorer(stream, *, metric_names, cap: int, n: int, maxf2: int = 0,

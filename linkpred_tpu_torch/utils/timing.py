@@ -6,7 +6,9 @@ warmup=True)`` averages ``repeat`` calls after an optional untimed one, and
 the ``mark`` it is handed.  The port adds ``device=`` (a keyword, default
 the card): on a CUDA device the clock is a pair of CUDA events on the
 current stream, read after a stream sync; on the CPU it is
-``time.perf_counter``.
+``time.perf_counter``.  ``measure_duration``'s untimed call is the span
+``api.warmup``, up to the stream sync that ends it, and its timed calls
+with their closing sync are ``api.score`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import time
 from typing import Callable, Tuple, TypeVar
 
 import torch
+
+from .profiling import span
 
 T = TypeVar("T")
 
@@ -29,13 +33,18 @@ class _Clock:
         self.stream = (torch.cuda.current_stream(device)
                        if device.type == "cuda" else None)
 
+    def sync(self) -> None:
+        """Wait for the work queued on the clock's stream."""
+        if self.stream is not None:
+            self.stream.synchronize()
+
     def start(self) -> None:
         if self.stream is None:
             self.t0 = time.perf_counter()
             return
         self.begin = torch.cuda.Event(enable_timing=True)
         self.end = torch.cuda.Event(enable_timing=True)
-        self.stream.synchronize()
+        self.sync()
         self.begin.record(self.stream)
 
     def stop(self) -> float:
@@ -53,13 +62,17 @@ def measure_duration(fn: Callable[[], T], repeat: int = 1,
     builds and loads them), then ``repeat`` times on ``device``; return
     (average milliseconds, last result)."""
     repeat = max(repeat, 1)
-    if warmup:
-        fn()
     clock = _Clock(device)
-    clock.start()
-    for _ in range(repeat):
-        result = fn()
-    return clock.stop() / repeat, result
+    if warmup:
+        with span("api.warmup"):
+            fn()
+            clock.sync()
+    with span("api.score"):
+        clock.start()
+        for _ in range(repeat):
+            result = fn()
+        ms = clock.stop()
+    return ms / repeat, result
 
 
 def measure_duration_marked(fn: Callable[[Callable], T], repeat: int = 1, *,

@@ -12,7 +12,9 @@ times are the CPU's and are not compared.
 """
 import importlib.util
 import itertools
+import json
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -276,15 +278,23 @@ def test_npz_saves_a_graph_on_a_device(tmp_path):
 
 # ----------------------------------------------------------------- profiling
 
-def test_profile_fn_on_a_cpu_op(monkeypatch):
+def _trace_dirs(tmp_path):
+    return [f for f in os.listdir(tmp_path) if f.startswith("linkpred_trace_")]
+
+
+def test_profile_fn_on_a_cpu_op(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     a = torch.arange(64 * 64, dtype=torch.float32).reshape(64, 64)
     result, summary = profiling.profile_fn(torch.mm, a, a, top=5)
     assert torch.equal(result, a @ a)
     assert 0 < len(summary) <= 5
-    ms = [t for _, t in summary]
+    ms = [t for _, t, _ in summary]
     assert ms == sorted(ms, reverse=True) and all(t >= 0 for t in ms)
-    assert "aten::mm" in dict(summary)
+    assert ("aten::mm", False) in {(name, dev) for name, _, dev in summary}
+    assert not any(dev for _, _, dev in summary), "no card, no device row"
+    # the trace profile_fn wrote is gone with its directory
+    assert _trace_dirs(tmp_path) == []
 
 
 def test_summarize_trace_reads_what_trace_wrote(tmp_path, monkeypatch):
@@ -295,17 +305,31 @@ def test_summarize_trace_reads_what_trace_wrote(tmp_path, monkeypatch):
     assert d == str(tmp_path / "tr")
     assert any(f.endswith(".trace.json.gz") for f in os.listdir(d))
     summary = profiling.summarize_trace(d)
-    assert "aten::sort" in dict(summary)
-    ms = [t for _, t in summary]
+    assert ("aten::sort", False) in {(name, dev) for name, _, dev in summary}
+    ms = [t for _, t, _ in summary]
     assert ms == sorted(ms, reverse=True)
     assert len(profiling.summarize_trace(d, top=2)) == 2
+    # a host op and a kernel of one name are two rows, each its own sum
+    with open(os.path.join(d, "card.trace.json"), "w") as fh:
+        json.dump({"traceEvents": [
+            {"ph": "X", "cat": "cpu_op", "name": "twin", "dur": 1000},
+            {"ph": "X", "cat": "kernel", "name": "twin", "dur": 3000},
+            {"ph": "X", "cat": "kernel", "name": "twin", "dur": 2000},
+            {"ph": "X", "cat": "gpu_memset", "name": "twin", "dur": 500}]},
+            fh)
+    rows = {(name, dev): t for name, t, dev in
+            profiling.summarize_trace(d, top=1000) if name == "twin"}
+    assert rows == {("twin", False): 1.0, ("twin", True): 5.5}
 
 
-def test_profile_fn_raises_without_device_rows_on_a_card(monkeypatch):
+def test_profile_fn_raises_without_device_rows_on_a_card(monkeypatch,
+                                                          tmp_path):
     """Where a card is reported, a trace with no device event raises rather
-    than return a host-only table."""
+    than return a host-only table, and leaves no trace behind."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     a = torch.ones(8, 8)
     with pytest.raises(RuntimeError, match="no device event"):
         profiling.profile_fn(torch.mm, a, a)
+    assert _trace_dirs(tmp_path) == []

@@ -19,6 +19,7 @@ from linkpred_tpu.predict import scoring as ref_scoring
 from linkpred_tpu_torch.ops import compact
 from linkpred_tpu_torch.ops.topk import desc_score_key, spread_invalid
 from linkpred_tpu_torch.predict import scoring
+from linkpred_tpu_torch.utils.profiling import counter
 
 CHUNK = 1 << 11
 RATIO = 2
@@ -110,9 +111,9 @@ def _full_sort(key, kk):
 def test_argselect_packed_arm_exact(rng):
     key, scores = _selection_keys(rng, 1 << 16)
     kk = 300
-    before = scoring.PACKED_ARM_RUNS
+    before = counter("select.packed_arm")
     sk, si = scoring._argselect_packed(key, kk)
-    assert scoring.PACKED_ARM_RUNS == before + 1
+    assert counter("select.packed_arm") == before + 1
     fk, fi = _full_sort(key, kk)
     np.testing.assert_array_equal(sk.numpy(), fk.numpy())
     assert set(zip(sk.tolist(), si.tolist())) == \
@@ -130,9 +131,9 @@ def test_argselect_sort_arm_on_overflow():
     """A tie plateau at the cut puts every lane under T: the survivors
     overflow the pack and the full sort runs, still exact."""
     key = desc_score_key(torch.full((1 << 14,), 0.5))
-    before = scoring.SORT_ARM_RUNS
+    before = counter("select.sort_arm")
     sk, si = scoring._argselect_packed(key, 64)
-    assert scoring.SORT_ARM_RUNS == before + 1
+    assert counter("select.sort_arm") == before + 1
     np.testing.assert_array_equal(sk.numpy(), _full_sort(key, 64)[0].numpy())
 
 
@@ -144,9 +145,9 @@ def test_argselect_sort_arm_on_undershoot(rng, monkeypatch):
     low = torch.sort(key).values[kk // 2]
     monkeypatch.setattr(scoring, "sample_threshold",
                         lambda k, n: (low, 0))
-    before = scoring.SORT_ARM_RUNS
+    before = counter("select.sort_arm")
     sk, si = scoring._argselect_packed(key, kk)
-    assert scoring.SORT_ARM_RUNS == before + 1
+    assert counter("select.sort_arm") == before + 1
     np.testing.assert_array_equal(sk.numpy(), _full_sort(key, kk)[0].numpy())
 
 
@@ -156,9 +157,9 @@ def test_argselect_dispatch_rule(rng, monkeypatch, kk, packs):
     kk * 4 <= total // PACK_RATIO."""
     monkeypatch.setattr(scoring, "SEL_PACK_MIN", 1 << 14)
     key, _ = _selection_keys(rng, 1 << 15)
-    before = scoring.PACKED_ARM_RUNS + scoring.SORT_ARM_RUNS
+    before = counter("select.packed_arm") + counter("select.sort_arm")
     sk, _ = scoring._argselect(key, kk)
-    ran = scoring.PACKED_ARM_RUNS + scoring.SORT_ARM_RUNS - before
+    ran = counter("select.packed_arm") + counter("select.sort_arm") - before
     assert ran == (1 if packs else 0)
     np.testing.assert_array_equal(sk.numpy(), _full_sort(key, kk)[0].numpy())
 

@@ -24,6 +24,7 @@ from linkpred_tpu_torch.ops import compact
 from linkpred_tpu_torch.ops import fused_tail as ft
 from linkpred_tpu_torch.ops.topk import desc_key_score
 from linkpred_tpu_torch.predict import scoring
+from linkpred_tpu_torch.utils.profiling import counter
 from linkpred_tpu_torch.predict.plan import build_plan
 
 pytestmark = pytest.mark.cuda
@@ -91,10 +92,10 @@ def _tail_inputs(rng, cap, w_bits, run_len, wide, n_wt, device, kill=0.0):
 
 
 def _kernel_vs_twin(hi, lo, degs, wts, min_score, mets, **kw):
-    before = ft.LAUNCHES
+    before = counter("k1.launches")
     kk, ku, kv = ft.fused_tail(hi, lo, degs, wts, min_score, metrics=mets,
                                **kw)
-    assert ft.LAUNCHES == before + 1
+    assert counter("k1.launches") == before + 1
     rk, ru, rv = ft.fused_tail_reference(hi, lo, degs, wts, min_score,
                                          metrics=mets, **kw)
     assert torch.equal(ku, ru) and torch.equal(kv, rv)
@@ -299,9 +300,9 @@ def test_pack_kernel_vs_twin(rng, cuda, dist):
         key[:] = 1 << 30
         key[300_000: 300_000 + 50_000] = 3
     thr = torch.tensor(thr, dtype=torch.int32, device=cuda)
-    before = compact.LAUNCHES
+    before = counter("k2.launches")
     out = compact.pack_survivors(key, thr)
-    assert compact.LAUNCHES == before + 1
+    assert counter("k2.launches") == before + 1
     ref = compact.pack_survivors_reference(key, thr)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
@@ -367,13 +368,13 @@ def test_edge_stream_cuda_matches_cpu(rng, cuda, d1, keyed, sources):
         p = build_plan(g, d1, 1024, slot_budget=0, sources=sources,
                        device=dev)
         assert not p.packed
-        before = ft.LAUNCHES
+        before = counter("k1.launches")
         out[str(dev)] = lt.predict_links_multi(
             g, names, min_degree1=d1, sources=sources, device=dev,
             plan=p if keyed else dataclasses.replace(p, keyed=False),
             options=lt.PredictOptions(max_edges=500))
         if dev != "cpu":
-            assert (ft.LAUNCHES > before) == keyed
+            assert (counter("k1.launches") > before) == keyed
     _same_results(out[str(cuda)], out["cpu"])
 
 
@@ -382,9 +383,9 @@ def test_p1_kernel_vs_xla_tail(rng, cuda):
     copy of its XLA tail."""
     hi, lo, dpack = (torch.as_tensor(a, device=cuda)
                      for a in pallas_tail.make_stream(rng, 1 << 18))
-    before = ft.LAUNCHES
+    before = counter("k1.launches")
     got = pallas_tail.pallas_tail(hi, lo, dpack, 0.0)
-    assert ft.LAUNCHES == before + 1
+    assert counter("k1.launches") == before + 1
     for a, b in zip(got, pallas_tail.xla_tail(hi, lo, dpack, 0.0)):
         assert torch.equal(a, b)
 
@@ -564,9 +565,9 @@ def test_dynstore_kernel_vs_plain(cuda, iters):
 
 
 def _pack_vs_twin(key, thr, ratio=None):
-    before = compact.LAUNCHES
+    before = counter("k2.launches")
     out = compact.pack_survivors(key, thr, ratio)
-    assert compact.LAUNCHES == before + 1
+    assert counter("k2.launches") == before + 1
     ref = compact.pack_survivors_reference(key, thr, ratio)
     for a, b in zip(out, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -716,10 +717,10 @@ def test_bench_row_on_the_card(cuda, monkeypatch, capsys, tmp_path):
     for k in ("BENCH_DEVICE", "BENCH_KEY64", "BENCH_CAP", "BENCH_DEG",
               "BENCH_METRIC"):
         monkeypatch.delenv(k, raising=False)
-    before = ft.LAUNCHES
+    before = counter("k1.launches")
     assert run.main() == 0
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert ft.LAUNCHES > before
+    assert counter("k1.launches") > before
     peak = roofline.device_peak_gbps(cuda)
     keys = {"metric", "value", "unit", "vs_baseline", "engine", "samples",
             "rate_min", "rate_max", "hbm_model_bytes",
@@ -749,13 +750,13 @@ def test_all_models_cuda_matches_cpu(cuda):
     g = planted_partition_graph(6, 22, p_in=0.5, p_out=0.01, seed=1)
     got = all_models(degrees=(0, 16, 64), device="cuda")
     want = all_models(degrees=(0, 16, 64), device="cpu")
-    before = ft.LAUNCHES
+    before = counter("k1.launches")
     for p, q in zip(got, want):
         assert p.name == q.name and p.name.endswith(f"Cuda{p.min_degree1}")
         p.cap = q.cap = 1 << 12
         _same_results({p.metric: p.predict(g, max_edges=80)},
                       {q.metric: q.predict(g, max_edges=80)})
-    assert ft.LAUNCHES > before
+    assert counter("k1.launches") > before
 
 
 def test_edge_slot_map_on_the_card(rng, cuda):
@@ -846,10 +847,10 @@ def test_gnn_on_the_card_matches_cpu(cuda):
             embs.append(gnn.sage_encode(p, torch.as_tensor(feats, device=dev),
                                         esrc, edst, deg).cpu())
     torch.testing.assert_close(embs[0], embs[1], rtol=1e-5, atol=1e-6)
-    before = ft.LAUNCHES
+    before = counter("k1.launches")
     res = gnn.GNNPredictor(params, feats, device="cuda").predict(
         g, max_edges=50)
-    assert len(res) == 50 and ft.LAUNCHES > before
+    assert len(res) == 50 and counter("k1.launches") > before
     # a CPU predictor encodes with a copy: the card's model stays put
     on_cpu = gnn.GNNPredictor(params, feats, device="cpu").predict(
         g, max_edges=50)

@@ -28,9 +28,9 @@ from linkpred_tpu.predict import scoring as ref_scoring
 
 import linkpred_tpu_torch as lt
 from linkpred_tpu_torch import convert
-from linkpred_tpu_torch.ops import fused_tail as ft
 from linkpred_tpu_torch.ops.topk import desc_key_score
 from linkpred_tpu_torch.predict import plan, scoring
+from linkpred_tpu_torch.utils.profiling import counter
 
 ALL = list(lt.METRICS)
 OPTS = dict(max_edges=10_000)
@@ -56,11 +56,11 @@ def _edge_plans(gr, d1, cap, sources=None):
 def test_keyed_edge_stream_vs_reference_and_oracle(rng, d1):
     gr = random_graph(rng, 150, 5)
     pp, rp = _edge_plans(gr, d1, 4096)
-    launches = ft.LAUNCHES
+    launches = counter("k1.launches")
     got = lt.predict_links_multi(_port_graph(gr), ALL, min_degree1=d1,
                                  plan=pp, options=lt.PredictOptions(**OPTS),
                                  device="cpu")
-    assert ft.LAUNCHES == launches, "CPU tensors take the twin"
+    assert counter("k1.launches") == launches, "CPU tensors take the twin"
     want = lp.predict_links_multi(gr, ALL, min_degree1=d1, plan=rp,
                                   options=lp.PredictOptions(**OPTS))
     for name in ALL:

@@ -25,6 +25,7 @@ from linkpred_tpu.predict import plan as ref_plan
 import linkpred_tpu_torch as lt
 from linkpred_tpu_torch import convert
 from linkpred_tpu_torch.predict import api, plan, scoring
+from linkpred_tpu_torch.utils.profiling import counter
 
 ALL = list(lt.METRICS)
 SALTON = "salton_cosine_similarity"
@@ -188,11 +189,11 @@ def test_survivor_pack_inside_full_run(rng, monkeypatch):
     want = lp.predict_links(gr, "jaccard_coefficient", min_degree1=0,
                             cap=1024, options=lp.PredictOptions(**opts))
     monkeypatch.setattr(scoring, "SEL_PACK_MIN", 1 << 12)
-    before = scoring.PACKED_ARM_RUNS
+    before = counter("select.packed_arm")
     got = lt.predict_links(gp, "jaccard_coefficient", min_degree1=0,
                            cap=1024, options=lt.PredictOptions(**opts),
                            device="cpu")
-    assert scoring.PACKED_ARM_RUNS > before
+    assert counter("select.packed_arm") > before
     _assert_same_result(got, want, "jaccard_coefficient")
 
 

@@ -44,6 +44,7 @@ from linkpred_tpu_torch.experiments import (_probe, ab_batchsort,
                                             mesh_overhead, profile_bench)
 from linkpred_tpu_torch.ops import compact
 from linkpred_tpu_torch.predict import api, scoring
+from linkpred_tpu_torch.utils.profiling import counter
 from linkpred_tpu_torch.predict.plan import build_plan
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -159,14 +160,14 @@ def _rows(name):
 def test_profile_bench_vs_jax(bench10, pack_small):
     y, _, k, want = bench10
     plan = build_plan(y, 64, cap=CAP, device="cpu")
-    packed = scoring.PACKED_ARM_RUNS
+    packed = counter("select.packed_arm")
     rows = _rows("profile_bench")
     got = profile_bench.profile_pass(y, plan, k, CPU, rows, top=5)
     _same(got, want, "profile_bench")
-    assert scoring.PACKED_ARM_RUNS > packed, "the pack arm ran"
+    assert counter("select.packed_arm") > packed, "the pack arm ran"
     ops = rows.rows[-1]["ops"]
     assert rows.rows[0]["card"] is None and len(ops) == 5 \
-        and all(ms >= 0 for _, ms in ops)
+        and all(ms >= 0 for _, ms, _ in ops)
 
 
 def test_profile_tiles_vs_jax(tmp_path):
@@ -378,14 +379,14 @@ def test_ab_pack_sel_vs_jax(jax_ab_pack_sel):
     want = set(jlanes[jkeys < jkeys[-1]].tolist())
     t = torch.as_tensor(key)
     fns = ab_pack_sel.arms(t, kk, 0.2)
-    packed = scoring.PACKED_ARM_RUNS
+    packed = counter("select.packed_arm")
     for name in ("sort_full", "packed_full"):
         sk, lanes = fns[name]()
         got = sk.numpy().view(np.uint32) ^ np.uint32(1 << 31)
         np.testing.assert_array_equal(got, jkeys, err_msg=name)
         lanes, sk = lanes.numpy(), sk.numpy()
         assert set(lanes[sk < sk[-1]].tolist()) == want, name
-    assert scoring.PACKED_ARM_RUNS == packed + 1, "the pack arm packed"
+    assert counter("select.packed_arm") == packed + 1, "the pack arm packed"
     thr = ab_pack_sel.fixed_threshold(n, kk, 0.2)
     assert thr + (1 << 31) == int(np.uint32(0x44000000 * 0.2
                                             * (kk / n / 0.2) * 1.3))
