@@ -28,7 +28,7 @@ import torch
 from ..graph import CSRGraph
 from ..utils.device import resolve_device
 from ..utils.numeric import next_pow2 as _next_pow2
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 __all__ = ["TilePlan", "build_plan", "KILL"]
 
@@ -121,6 +121,32 @@ def _native_firsthop(g, min_degree1: int, upper_only: bool):
     return (src[:m1].astype(np.int64), mid[:m1].astype(np.int64),
             skip[:m1].astype(np.int64), kuniq[:k].astype(np.int64),
             kskip[:k].astype(np.int64))
+
+
+def _source_rows(n: int, sources, keep_src) -> Optional[np.ndarray]:
+    """The CSR rows a first hop reads, ascending: the distinct ids of
+    ``sources``, intersected with those of ``keep_src`` where both are
+    given, less any outside ``[0, n)``; None for a whole-graph build."""
+    rows = None
+    for ids in (sources, keep_src):
+        if ids is not None:
+            ids = np.unique(np.asarray(ids, dtype=np.int64))
+            rows = ids if rows is None else np.intersect1d(
+                rows, ids, assume_unique=True)
+    if rows is None:
+        return None
+    return rows[(rows >= 0) & (rows < n)]
+
+
+def _row_edges(g, deg, offsets64, rows):
+    """The first-hop edges (src, mid) of the CSR rows ``rows`` (ascending),
+    each row's neighbours in CSR order: the sequence a mask of every edge
+    by ``rows`` leaves, read from the rows' ranges alone."""
+    rdeg = deg[rows]
+    src = np.repeat(rows, rdeg)
+    shift = offsets64[rows] - (np.cumsum(rdeg) - rdeg)
+    pos = np.arange(src.shape[0], dtype=np.int64) + np.repeat(shift, rdeg)
+    return src, g.indices[pos].astype(np.int64)
 
 
 def _pad_bucket(x: int) -> int:
@@ -231,7 +257,10 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
     ``_keep_src``/``_allow_huge`` are internal (the hub sub-plan).
 
     The plan is the span ``plan.build``, its stages ``plan.firsthop``
-    (the filtered first hop and the killer list), ``plan.route`` (the cap,
+    (the filtered first hop and the killer list: with ``sources`` or
+    ``_keep_src`` only those rows of the CSR, counted in
+    ``plan.firsthop_rows``; else a scan of every edge, counted in
+    ``plan.firsthop_scans``), ``plan.route`` (the cap,
     per-source counts and the hub routing, holding the hub sub-plan's own
     ``plan.build``), then ``plan.expand`` and ``plan.emit`` (the packed
     slot stream: its expansion, then the degree split, padding, tiles and
@@ -250,38 +279,50 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
     n = g.n
     deg = np.asarray(g.degrees, dtype=np.int64)
     offsets64 = np.asarray(g.offsets, dtype=np.int64)
-    indices = np.asarray(g.indices, dtype=np.int64)
 
     upper_only = sources is None
+    _ix = [None]
     _gk = [None]
+
+    def indices():
+        # the int64 copy of every edge's target, made lazily: a source
+        # set's first hop reads its own rows alone
+        if _ix[0] is None:
+            _ix[0] = np.asarray(g.indices, dtype=np.int64)
+        return _ix[0]
 
     def gkeys():
         # globally sorted (src*n + dst) edge keys, built lazily
         if _gk[0] is None:
             _gk[0] = (np.repeat(np.arange(n, dtype=np.int64), deg) * n
-                      + indices[: g.m])
+                      + indices()[: g.m])
         return _gk[0]
 
     # Stage 1: the filtered first-hop edge list and the killer list (one
     # pseudo-edge per active source; its count enters the per-source totals
-    # that drive cap selection and hub routing).
+    # that drive cap selection and hub routing).  A build for a source set
+    # reads only those rows of the CSR; a whole-graph build scans every
+    # edge.
     with span("plan.firsthop"):
-        fh = (_native_firsthop(g, min_degree1, upper_only)
-              if sources is None and _keep_src is None else None)
+        rows = _source_rows(n, sources, _keep_src)
+        if rows is None:
+            count("plan.firsthop_scans")
+            fh = _native_firsthop(g, min_degree1, upper_only)
+        else:
+            count("plan.firsthop_rows", int(rows.shape[0]))
+            fh = None
         if fh is not None:
             src, mid, skip, kuniq, kskip = fh
         else:
-            src = np.repeat(np.arange(n, dtype=np.int64), deg)
-            mid = indices[: g.m]
+            if rows is None:
+                src = np.repeat(np.arange(n, dtype=np.int64), deg)
+                mid = indices()[: g.m]
+            else:
+                src, mid = _row_edges(g, deg, offsets64, rows)
             dmid = deg[mid]
             keep = dmid > 0
             if min_degree1:
                 keep &= dmid <= min_degree1
-            if sources is not None:
-                keep &= np.isin(src, np.asarray(sources, dtype=np.int64))
-            if _keep_src is not None:
-                keep &= np.isin(src,
-                                np.asarray(_keep_src, dtype=np.int64))
             src, mid = src[keep], mid[keep]
 
             if upper_only and src.size:
@@ -390,7 +431,7 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
                 s_iota = np.arange(int(work.sum()), dtype=np.int64)
                 j = s_iota - eprefix[eloc]
                 adr = offsets64[mid][eloc] + skip[eloc] + j
-                wv = indices[adr]
+                wv = indices()[adr]
                 slot_src = np.repeat(src, work32)
                 kq = slot_src * n + wv
                 gk = gkeys()

@@ -25,7 +25,10 @@ The reference's observability is wall-clock only.  The port adds:
   those the ones with killers), ``k2.launches`` (of K2),
   ``select.packed_arm`` and ``select.sort_arm`` (which arm of the packed
   selection ran), ``scan.segments`` (segments the segmented selection
-  selected over) and ``scan.tiles`` (tiles the tile loop scored).
+  selected over), ``scan.tiles`` (tiles the tile loop scored),
+  ``plan.firsthop_rows`` (CSR rows a plan's first hop read for a source
+  set) and ``plan.firsthop_scans`` (plans whose first hop scanned every
+  edge).
 * **Trace capture** (:func:`trace`, :func:`profile_fn`): a
   ``torch.profiler`` session (CPU and, where there is a card, CUDA
   activity) whose chrome trace is read back into a per-op table, host ops

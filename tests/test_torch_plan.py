@@ -1,6 +1,9 @@
 """The port's NumPy copies of the host layer against the reference: graphs,
 transforms, R-MAT synthesis, the deletion pipeline and ``build_plan``, every
 array field ``np.array_equal`` (dtype included) and every scalar equal.
+``build_plan`` for a source set reads only those rows of the CSR where the
+reference masks every edge: the plans, the first hop's counters and the
+serving answers are held against the reference and a full-scan plan.
 
 The port cannot import the reference's host modules (they import jax, and
 the machine with the card has none), so these tests pin the copies.
@@ -24,6 +27,7 @@ from linkpred_tpu_torch.bench import synth
 from linkpred_tpu_torch.io import native
 from linkpred_tpu_torch.ops import batch, transform
 from linkpred_tpu_torch.predict import plan
+from linkpred_tpu_torch.utils import profiling
 
 
 def _both_graphs(src, dst, n):
@@ -127,6 +131,141 @@ def test_build_plan_sources_and_edge_stream(rng):
     _assert_plan_equal(plan.build_plan(gp, 8, 1024, slot_budget=0,
                                        device="cpu"),
                        ref_plan.build_plan(gr, 8, 1024, slot_budget=0))
+
+
+# A Zipf-skewed graph on vertices 0..299 of 320: 300..319 have no edge, and
+# the first few vertices are hubs whose second hop exceeds a small cap.
+_N_LIVE, _N = 300, 320
+# (d1, cap): IHub and LHub at caps where hubs get a sub-plan
+_HUB_CAPS = [(0, 256), (2, 64), (64, 128)]
+_SOURCE_SETS = {
+    "unsorted_dups": [140, 5, 77, 5, 250, 140, 33, 6],
+    "zero_degree": [310, 12, 300, 319, 45],
+    "hubs": [2, 0, 1, 250, 0, 7],
+    "out_of_range": [-3, 7, 320, 99, 10 ** 6, 1],
+    "empty": [],
+}
+
+
+def _hub_graphs():
+    rng = np.random.default_rng(5)
+    w = 1.0 / np.arange(1, _N_LIVE + 1) ** 1.2
+    src = rng.choice(_N_LIVE, size=2000, p=w / w.sum())
+    dst = rng.integers(0, _N_LIVE, 2000)
+    gr, gp = _both_graphs(src, dst, _N)
+    assert not np.asarray(gp.degrees)[_N_LIVE:].any(), "test premise"
+    return gr, gp
+
+
+@pytest.fixture
+def _hubs_on_device(monkeypatch):
+    """Both planners keep every hub of these graphs on the device."""
+    monkeypatch.setattr(plan, "HUGE_DEVICE_MAX", 1 << 20)
+    monkeypatch.setattr(ref_plan, "HUGE_DEVICE_MAX", 1 << 20)
+
+
+@pytest.mark.parametrize("slot_budget", [None, 0])
+@pytest.mark.parametrize("kind", sorted(_SOURCE_SETS))
+@pytest.mark.parametrize("d1,cap", _HUB_CAPS)
+def test_source_plan_reads_rows_and_equals_reference(_hubs_on_device, d1, cap,
+                                                     kind, slot_budget):
+    """A plan for a source set reads only those rows of the CSR, and equals
+    the reference's, which masks every edge: unsorted ids, duplicates,
+    zero-degree vertices, ids outside the graph, and hubs, whose serving
+    sub-plan (the sources within the hubs) is built the same way."""
+    gr, gp = _hub_graphs()
+    sources = np.asarray(_SOURCE_SETS[kind], dtype=np.int64)
+    rp = ref_plan.build_plan(gr, d1, cap, slot_budget=slot_budget,
+                             sources=sources)
+    if kind == "hubs":
+        assert rp.huge_plan is not None, "test premise: serving sub-plan"
+    _assert_plan_equal(plan.build_plan(gp, d1, cap, slot_budget=slot_budget,
+                                       sources=sources, device="cpu"), rp)
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("d1,cap", _HUB_CAPS)
+def test_whole_graph_plan_with_hub_subplan(_hubs_on_device, monkeypatch, d1,
+                                           cap, use_native):
+    """A whole-graph plan scans every edge (natively or in NumPy); its hub
+    sub-plan (``upper_only`` with ``_keep_src``) reads the hubs' rows."""
+    if not use_native:
+        monkeypatch.setattr(native, "native_lib", lambda: None)
+    gr, gp = _hub_graphs()
+    rp = ref_plan.build_plan(gr, d1, cap)
+    assert rp.huge_plan is not None and rp.upper_only, "test premise"
+    _assert_plan_equal(plan.build_plan(gp, d1, cap, device="cpu"), rp)
+
+
+def _device_hubs(p) -> int:
+    """The rows of ``p``'s hub sub-plan: its hubs scored on the device."""
+    return 0 if p.huge_plan is None else p.huge_src.size - p.host_src.size
+
+
+@pytest.mark.parametrize("kind", ["hubs", "out_of_range", "zero_degree"])
+@pytest.mark.parametrize("d1,cap", _HUB_CAPS)
+def test_serving_build_counts_rows_and_no_scan(_hubs_on_device, d1, cap,
+                                               kind):
+    _, gp = _hub_graphs()
+    sources = np.asarray(_SOURCE_SETS[kind], dtype=np.int64)
+    distinct = np.unique(sources)
+    in_range = int(((distinct >= 0) & (distinct < gp.n)).sum())
+    profiling.reset_counters()
+    p = plan.build_plan(gp, d1, cap, sources=sources, device="cpu")
+    if kind == "hubs":
+        assert _device_hubs(p) > 0, "test premise: serving sub-plan"
+    assert profiling.counter("plan.firsthop_scans") == 0
+    assert profiling.counter("plan.firsthop_rows") == (in_range
+                                                       + _device_hubs(p))
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("d1,cap", _HUB_CAPS)
+def test_whole_graph_build_counts_one_scan(_hubs_on_device, monkeypatch, d1,
+                                           cap, use_native):
+    if not use_native:
+        monkeypatch.setattr(native, "native_lib", lambda: None)
+    _, gp = _hub_graphs()
+    profiling.reset_counters()
+    p = plan.build_plan(gp, d1, cap, device="cpu")
+    assert _device_hubs(p) > 0, "test premise: hub sub-plan"
+    assert profiling.counter("plan.firsthop_scans") == 1
+    assert profiling.counter("plan.firsthop_rows") == _device_hubs(p)
+
+
+def _masked_row_edges(g, deg, offsets64, rows):
+    """The first hop of a source set as a mask over every edge: each
+    edge's source tested against ``rows``."""
+    src = np.repeat(np.arange(g.n, dtype=np.int64), deg)
+    mid = np.asarray(g.indices, dtype=np.int64)[: g.m]
+    keep = np.isin(src, rows)
+    return src[keep], mid[keep]
+
+
+@pytest.mark.parametrize("metric", ["adamic_adar", "jaccard_coefficient"])
+@pytest.mark.parametrize("d1,cap", _HUB_CAPS)
+def test_serving_answers_equal_a_full_scan_plan(_hubs_on_device, monkeypatch,
+                                                d1, cap, metric):
+    """A serving call's answer is bit for bit the one it gives with a plan
+    whose first hop masked every edge."""
+    _, gp = _hub_graphs()
+    users = np.asarray(_SOURCE_SETS["hubs"] + _SOURCE_SETS["unsorted_dups"])
+    opts = lt.PredictOptions(max_edges=200)
+    with monkeypatch.context() as m:
+        m.setattr(plan, "_row_edges", _masked_row_edges)
+        scanned = plan.build_plan(gp, d1, cap, sources=users, device="cpu")
+    assert scanned.huge_plan is not None, "test premise: serving sub-plan"
+    _assert_plan_equal(plan.build_plan(gp, d1, cap, sources=users,
+                                       device="cpu"), scanned)
+    got = lt.predict_links(gp, metric, min_degree1=d1, cap=cap,
+                           sources=users, options=opts, device="cpu")
+    want = lt.predict_links(gp, metric, min_degree1=d1, cap=cap,
+                            sources=users, options=opts, plan=scanned,
+                            device="cpu")
+    assert len(got) > 0
+    for f in ("u", "v", "score"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
 
 
 def test_plan_from_fields_roundtrip(rng):
