@@ -9,8 +9,9 @@ plan and makes one call as the window does; a serving cell answers
 ``--requests`` requests of the seed's stream.  For each seed of
 ``--control-seeds``, the control: the plain reference put in the
 program's place and computed in bfloat16, the precision below the
-float32 the configuration states.  Each is judged as a run is; one JSON
-line a reading on standard output.
+float32 the configuration states.  Each is judged as a run is, a traffic
+that names several metrics metric by metric; one JSON line a reading on
+standard output.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from . import graph500, judge
-from .reference import served_topk, whole_graph_topk
+from .reference import served_topk, whole_graph_topks
 from .run import ROOT, _load_json, cell_of
 
 __all__ = ["program_readings", "control_readings", "main"]
@@ -40,6 +41,7 @@ def program_readings(cfg, traffic, seed: int, device, requests: int = 0):
     """The judge's numbers of the program's answers on one seed."""
     from linkpred_tpu_torch.predict.api import (PredictOptions,
                                                 predict_links,
+                                                predict_links_multi,
                                                 top_per_source)
     from linkpred_tpu_torch.predict.plan import build_plan
 
@@ -47,15 +49,16 @@ def program_readings(cfg, traffic, seed: int, device, requests: int = 0):
 
     g, k = graph500.make_graph(cfg, seed, device)
     y = _program_graph(g)
-    d1, metric = int(cfg["min_degree1"]), traffic["metric"]
+    d1 = int(cfg["min_degree1"])
     if traffic["kind"] == "whole_graph":
         plan = build_plan(y, d1, device=device)
-        res = predict_links(y, metric, d1,
-                            options=PredictOptions(max_edges=k), plan=plan,
-                            device=device)
-        del plan
-        return judge.judge_whole_graph(g, metric, d1, k,
-                                       [(res.u, res.v, res.score)])
+        res = predict_links_multi(y, judge.metric_names(traffic), d1,
+                                  options=PredictOptions(max_edges=k),
+                                  plan=plan, device=device)
+        answer = {m: (r.u, r.v, r.score) for m, r in res.items()}
+        del plan, res
+        return judge.judge_whole_graph(g, traffic, d1, k, [answer])
+    metric = traffic["metric"]
     n_users = int(traffic["users"])
     max_edges = n_users * int(traffic["edges_per_user"])
     answers = []
@@ -75,15 +78,19 @@ def control_readings(cfg, traffic, seed: int, device, requests: int = 0,
     """The judge's numbers of the reference computed in ``dtype`` in the
     program's place."""
     g, k = graph500.make_graph(cfg, seed, device)
-    d1, metric = int(cfg["min_degree1"]), traffic["metric"]
+    d1 = int(cfg["min_degree1"])
 
     def host(t):
         return t.float().cpu().numpy()
 
     if traffic["kind"] == "whole_graph":
-        u, v, s = whole_graph_topk(g, metric, d1, k, dtype=dtype)
-        return judge.judge_whole_graph(g, metric, d1, k,
-                                       [(host(u), host(v), host(s))])
+        tops = whole_graph_topks(g, judge.metric_names(traffic), d1, k,
+                                 dtype=dtype)
+        answer = {m: (host(u), host(v), host(s))
+                  for m, (u, v, s) in tops.items()}
+        del tops
+        return judge.judge_whole_graph(g, traffic, d1, k, [answer])
+    metric = traffic["metric"]
     n_users = int(traffic["users"])
     max_edges = n_users * int(traffic["edges_per_user"])
     deg = g.degrees.cpu().numpy()

@@ -2,8 +2,11 @@
 
 * ``whole_graph``: set-up builds the whole graph's plan once
   (``predict.plan.build_plan``) and makes one untimed call; the window
-  then calls ``predict_links(..., plan=plan)`` back to back, one caller,
-  each call's top k on the host when it returns;
+  then calls ``predict_links_multi(..., plan=plan)`` back to back, one
+  caller, one pass for the traffic's ``metric`` or all of its
+  ``metrics``, each metric's top k on the host when it returns; a call's
+  program clocks are the sums over its metrics' results, and each
+  metric's answer is judged;
 * ``per_user``: a closed loop of one outstanding request; each request
   draws ``users`` distinct vertices of degree >= 1 from the seed, calls
   ``predict_links(..., sources=users)`` with no plan and then
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from . import graph500, judge, roofline
+from .reference import WEIGHTED
 from .trace import Capture, device_events
 
 __all__ = ["Record", "run"]
@@ -57,8 +61,8 @@ class Record:
     edges: int                      # directed edges of the graph scored
     plan_s: float = None            # set-up's whole-graph plan
     passes: list = None             # the plan's passes (roofline counts)
-    n_metrics: int = 1
-    n_weighted: int = 0
+    n_metrics: int = 1              # metrics a pass scores
+    n_weighted: int = 0             # of them, those summing a weight
     kind_of_card: str = ""
     events: list = None             # the traced slice's chrome events
     traced_calls: int = 0
@@ -84,7 +88,9 @@ def _sub_plans(plan) -> list:
 def _pass_info(plan, max_edges: int, n_metrics: int, device_bytes: int):
     """The plan's passes as the roofline readers count them: each pass's
     non-empty tiles' filled lanes, its degree width, and whether its
-    selection takes the survivor pack."""
+    selection takes the survivor pack.  A pass whose selection runs by
+    segments packs only where the merge of the segments' winners does: it
+    then has ``merge_pack``, that selection's lanes and survivors."""
     all_slots = plan.total_slots + plan.huge_slots + (
         plan.side_plan.total_slots if plan.side_plan else 0)
     k = roofline.exact_k(all_slots, max_edges)
@@ -106,6 +112,13 @@ def _pass_info(plan, max_edges: int, n_metrics: int, device_bytes: int):
             packed=bool(p.packed), wide=not p.deg16, cap=int(p.cap),
             tiles=int(nonempty.sum()), lanes=lanes, filled=int(lanes.sum()),
             kk=int(kk), packs=roofline.selection_packs(buffer, kk, seg)))
+        if seg > 1:
+            # each segment keeps its top min(k, its lanes); one selection
+            # a metric merges them
+            winners = seg * min(k, -(-t_pad // seg) * p.cap)
+            if roofline.selection_packs(winners, min(k, winners), 1):
+                out[-1]["merge_pack"] = dict(filled=winners,
+                                             kk=min(k, winners))
     return out
 
 
@@ -118,15 +131,17 @@ def _plan_line(plan, passes) -> str:
     parts = [f"{name}: {'packed' if p.packed else 'edge stream'}, "
              f"{p.num_tiles} tiles of cap {p.cap}, {p.total_slots} slots, "
              f"deg16 {p.deg16}, pack {'on' if i['packs'] else 'off'}"
+             + (", merge pack on" if "merge_pack" in i else "")
              for name, p, i in zip(names, [plan, *_sub_plans(plan)], passes)]
     parts.append(f"host hubs {plan.host_src.size}")
     return "plan: " + "; ".join(parts)
 
 
-def _spans(res) -> dict:
-    """The program's own clocks of a call (``PredictResult``): ms."""
-    return dict(scoring_ms=res.scoring_ms, time_ms=res.time_ms,
-                transfer_ms=res.transfer_ms)
+def _clocks(results) -> dict:
+    """The program's own clocks of a call, summed over its
+    ``PredictResult``s (one a metric): ms."""
+    return {name: sum(getattr(r, name) for r in results)
+            for name in ("scoring_ms", "time_ms", "transfer_ms")}
 
 
 def _program_graph(g: graph500.Graph):
@@ -200,6 +215,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     from linkpred_tpu_torch.predict import api
     from linkpred_tpu_torch.predict.api import (PredictOptions,
                                                 predict_links,
+                                                predict_links_multi,
                                                 top_per_source)
     from linkpred_tpu_torch.predict.plan import build_plan
 
@@ -215,7 +231,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         torch.cuda.reset_peak_memory_stats()
     _say(f"graph: n {y.n}, {edges} directed edges after removal, k {k}")
 
-    metric = traffic["metric"]
+    names = judge.metric_names(traffic)
     d1 = int(cfg["min_degree1"])
     kind = traffic["kind"]
     failed = []
@@ -241,25 +257,27 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
             raise RuntimeError(f"the configuration's whole-graph plan takes "
                                f"the {want}, this one the {got}")
         opts = PredictOptions(max_edges=k)
-        passes = _pass_info(plan, k, 1, dev_bytes)
+        passes = _pass_info(plan, k, len(names), dev_bytes)
         print(_plan_line(plan, passes), flush=True)
         sample = _Reservoir(int(traffic["checked_calls"]), seed)
-        predict_links(y, metric, d1, options=opts, plan=plan, device=device)
+        predict_links_multi(y, names, d1, options=opts, plan=plan,
+                            device=device)
 
         def call():
             t = time.perf_counter()
             try:
                 with torch.profiler.record_function("lpbench.predict_links"):
-                    res = predict_links(y, metric, d1, options=opts,
-                                        plan=plan, device=device)
+                    res = predict_links_multi(y, names, d1, options=opts,
+                                              plan=plan, device=device)
             except Exception:       # a failed pass counts, the window goes on
                 failure()
                 return dict(wall_s=time.perf_counter() - t, ok=False)
             wall = time.perf_counter() - t
-            sample.offer((res.u, res.v, res.score))
-            return dict(wall_s=wall, ok=True, **_spans(res))
+            sample.offer({m: (r.u, r.v, r.score) for m, r in res.items()})
+            return dict(wall_s=wall, ok=True, **_clocks(res.values()))
 
     elif kind == "per_user":
+        metric = traffic["metric"]
         n_users = int(traffic["users"])
         max_edges = n_users * int(traffic["edges_per_user"])
         per_user = int(traffic["per_user"])
@@ -297,7 +315,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
             wall = time.perf_counter() - t
             if keep:
                 answers.append((users, (top.u, top.v, top.score)))
-            rec = dict(wall_s=wall, ok=True, **_spans(res))
+            rec = dict(wall_s=wall, ok=True, **_clocks([res]))
             if len(plan_times) > n_plans:
                 rec["plan_s"] = plan_times[-1]
             return rec
@@ -339,8 +357,8 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     peak = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
     rec = Record(kind=kind, seconds=window_s, setup_s=setup_s, calls=calls,
                  attempted=len(calls), failed=len(failed), edges=edges,
-                 plan_s=plan_s, passes=passes,
-                 n_weighted=int(metric == "adamic_adar"),
+                 plan_s=plan_s, passes=passes, n_metrics=len(names),
+                 n_weighted=sum(m in WEIGHTED for m in names),
                  kind_of_card=torch.cuda.get_device_name(device)
                  if cuda else "cpu",
                  traced_calls=sum(c["traced"] == "slice" for c in calls),
@@ -372,7 +390,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     g = graph500.Graph(ghost.offsets.to(device), ghost.indices.to(device),
                        ghost.n)
     if kind == "whole_graph":
-        numbers = judge.judge_whole_graph(g, metric, d1, k, sample.items)
+        numbers = judge.judge_whole_graph(g, traffic, d1, k, sample.items)
     else:
         numbers = judge.judge_served(
             g, metric, d1, answers, max_edges=max_edges, per_user=per_user,

@@ -17,6 +17,14 @@ Numbers compared (each against its limit in the traffic file):
   reference's top ``max_edges`` leaves it, up to ``per_user``, where ties
   within the ``rank_gap`` limit of the last score may go either way;
 * ``missing``: calls that raised or never returned an answer.
+
+A whole-graph answer holds one answer a metric of the traffic
+(:func:`metric_names`), each judged against its own reference.  Where the
+traffic names several ``metrics``, its numbers are named
+``<number>.<metric>`` (``score_gap.adamic_adar``), beside one ``missing``,
+and its ``limits`` may map a metric's name to that metric's own limits
+(:func:`flat_limits`); where it names one ``metric``, the numbers keep
+their own names.
 """
 from __future__ import annotations
 
@@ -25,7 +33,24 @@ import torch
 
 from .reference import candidate_blocks, source_candidates
 
-__all__ = ["judge_whole_graph", "judge_served", "verdict"]
+__all__ = ["metric_names", "judge_whole_graph", "judge_served", "verdict",
+           "flat_limits", "PER_METRIC"]
+
+# The numbers judged for each metric of an answer.
+PER_METRIC = ("score_gap", "rank_gap", "invalid_rows", "count_off")
+
+
+def metric_names(traffic: dict) -> tuple:
+    """The metrics a traffic mix scores: its ``metrics``, or its one
+    ``metric``."""
+    return tuple(traffic["metrics"]) if "metrics" in traffic \
+        else (traffic["metric"],)
+
+
+def _check(traffic: dict, number: str, metric: str) -> str:
+    """A whole-graph check's name: ``<number>.<metric>`` where the traffic
+    names several ``metrics``, the number's own where it names one."""
+    return f"{number}.{metric}" if "metrics" in traffic else number
 
 
 def _rel(a, b):
@@ -37,52 +62,65 @@ def _rel(a, b):
     return gap if np.isfinite(gap) else 1e300
 
 
-def judge_whole_graph(g, metric: str, min_degree1: int, k: int, answers,
+def _answer_set(u, v, s, n: int, dev) -> dict:
+    key = torch.as_tensor(np.asarray(u, np.int64) * n
+                          + np.asarray(v, np.int64), device=dev)
+    score = torch.as_tensor(np.asarray(s, np.float64), device=dev)
+    key, order = torch.sort(key)
+    dup = int((key[1:] == key[:-1]).sum()) if key.numel() else 0
+    return dict(key=key, score=score[order], desc=score,
+                ref=torch.full_like(score, float("nan")), dup=dup)
+
+
+def judge_whole_graph(g, traffic: dict, min_degree1: int, k: int, answers,
                       block: int = 1 << 27) -> dict:
-    """Numbers of whole-graph answers ``[(u, v, score)]`` (host arrays)."""
+    """Numbers of whole-graph answers ``[{metric: (u, v, score)}]`` (host
+    arrays), one answer a metric of ``traffic``.  One pass over the
+    reference's candidates judges every metric, each with its own running
+    top k."""
+    names = metric_names(traffic)
     dev = g.indices.device
     n = g.n
-    sets = []
-    for u, v, s in answers:
-        key = torch.as_tensor(np.asarray(u, np.int64) * n
-                              + np.asarray(v, np.int64), device=dev)
-        score = torch.as_tensor(np.asarray(s, np.float64), device=dev)
-        key, order = torch.sort(key)
-        dup = int((key[1:] == key[:-1]).sum()) if key.numel() else 0
-        sets.append(dict(key=key, score=score[order], desc=score,
-                         ref=torch.full_like(score, float("nan")), dup=dup))
-    best = torch.empty(0, dtype=torch.float64, device=dev)
+    sets = [[_answer_set(*a[m], n, dev) for a in answers] for m in names]
+    best = torch.empty((len(names), 0), dtype=torch.float64, device=dev)
     n_cand = 0
-    for lo, hi, keys, score in candidate_blocks(g, metric, min_degree1,
+    for lo, hi, keys, score in candidate_blocks(g, names, min_degree1,
                                                 block=block):
         n_cand += int(keys.shape[0])
-        for a in sets:
-            i0 = int(torch.searchsorted(a["key"], lo * n))
-            i1 = int(torch.searchsorted(a["key"], hi * n))
-            if i1 <= i0 or keys.numel() == 0:
-                continue
-            q = a["key"][i0:i1]
-            p = torch.searchsorted(keys, q).clamp(max=keys.shape[0] - 1)
-            hit = keys[p] == q
-            a["ref"][i0:i1] = torch.where(hit, score[p],
-                                          torch.full_like(score[p],
-                                                          float("nan")))
-        best = torch.cat([best, score])
-        if best.shape[0] > k:
-            best = torch.topk(best, k, sorted=False).values
-    best = torch.sort(best, descending=True).values
+        for row, answered in zip(score, sets):
+            for a in answered:
+                i0 = int(torch.searchsorted(a["key"], lo * n))
+                i1 = int(torch.searchsorted(a["key"], hi * n))
+                if i1 <= i0 or keys.numel() == 0:
+                    continue
+                q = a["key"][i0:i1]
+                p = torch.searchsorted(keys, q).clamp(max=keys.shape[0] - 1)
+                hit = keys[p] == q
+                a["ref"][i0:i1] = torch.where(hit, row[p],
+                                              torch.full_like(row[p],
+                                                              float("nan")))
+        best = torch.cat([best, score], 1)
+        del score
+        if best.shape[1] > k:
+            best = torch.topk(best, k, dim=1, sorted=False).values
+    best = torch.sort(best, dim=1, descending=True).values
     want = min(k, n_cand)
-    out = dict(score_gap=0.0, rank_gap=0.0, invalid_rows=0, count_off=0)
-    for a in sets:
-        found = ~torch.isnan(a["ref"])
-        out["invalid_rows"] = max(out["invalid_rows"],
-                                  int((~found).sum()) + a["dup"])
-        out["score_gap"] = max(out["score_gap"],
-                               _rel(a["score"][found], a["ref"][found]))
-        got = torch.sort(a["desc"], descending=True).values
-        m = min(got.shape[0], want)
-        out["rank_gap"] = max(out["rank_gap"], _rel(got[:m], best[:m]))
-        out["count_off"] = max(out["count_off"], abs(got.shape[0] - want))
+    out = {}
+    for m, ref_best, answered in zip(names, best, sets):
+        nums = dict(score_gap=0.0, rank_gap=0.0, invalid_rows=0, count_off=0)
+        for a in answered:
+            found = ~torch.isnan(a["ref"])
+            nums["invalid_rows"] = max(nums["invalid_rows"],
+                                       int((~found).sum()) + a["dup"])
+            nums["score_gap"] = max(nums["score_gap"],
+                                    _rel(a["score"][found], a["ref"][found]))
+            got = torch.sort(a["desc"], descending=True).values
+            c = min(got.shape[0], want)
+            nums["rank_gap"] = max(nums["rank_gap"],
+                                   _rel(got[:c], ref_best[:c]))
+            nums["count_off"] = max(nums["count_off"],
+                                    abs(got.shape[0] - want))
+        out.update((_check(traffic, name, m), v) for name, v in nums.items())
     return out
 
 
@@ -148,6 +186,22 @@ def judge_served(g, metric: str, min_degree1: int, requests, *,
         lo = torch.clamp(n_hi, max=per_user)
         hi = torch.clamp(n_lo, max=per_user)
         out["count_off"] += int(((got_rows < lo) | (got_rows > hi)).sum())
+    return out
+
+
+def flat_limits(traffic: dict) -> dict:
+    """``{check: limit}`` of a traffic mix, the checks named as the judge
+    names its numbers: each metric's limits from ``limits[metric]`` where
+    it gives them, else from the shared ``limits[<number>]``, then
+    ``missing``."""
+    limits = traffic["limits"]
+    out = {}
+    for m in metric_names(traffic):
+        own = limits.get(m, {})
+        for name in PER_METRIC:
+            out[_check(traffic, name, m)] = own[name] if name in own \
+                else limits[name]
+    out["missing"] = limits["missing"]
     return out
 
 

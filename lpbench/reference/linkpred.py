@@ -3,16 +3,23 @@
 It works the answer out again from the graph and the request alone: every
 second-hop triple (u, mid, w) is listed, the triples of one pair (u, w) are
 counted and their weights summed after one sort, pairs that are edges or
-``w == u`` are dropped, and the score is computed in ``dtype`` (float64 for
-the reference; bfloat16 for the control).  It imports nothing of the
+``w == u`` are dropped, and the scores are computed in ``dtype`` (float64
+for the reference; bfloat16 for the control).  One block's counts and
+weight sums serve every metric asked for.  It imports nothing of the
 program.
 
 Semantics (the reference paper's, as the program states them): an
 intermediate ``mid`` counts when ``deg(mid) > 0`` and, for LHub
-(``min_degree1 > 0``), ``deg(mid) <= min_degree1``; the count is the number
-of such common neighbours and the degrees are the whole graph's; Jaccard is
-``cnt / (deg u + deg w - cnt)``, Adamic-Adar the sum of ``1 / log deg(mid)``.
-A candidate is a pair with ``cnt > 0``, not an edge, and a score above 0:
+(``min_degree1 > 0``), ``deg(mid) <= min_degree1``; the count CN is the
+number of such common neighbours and the degrees are the whole graph's.
+The nine metrics, with ``du``, ``dw`` the pair's degrees: common neighbours
+CN; Jaccard ``CN / (du + dw - CN)``; Sørensen ``CN / (du + dw)``; Salton
+``CN / sqrt(du dw)``; hub-promoted ``CN / min(du, dw)``; hub-depressed
+``CN / max(du, dw)``; Leicht-Holme-Newman ``CN / (du dw)``; Adamic-Adar the
+sum of ``1 / ln deg(mid)``; resource allocation the sum of ``1 / deg(mid)``.
+Sørensen is the reference paper's code's (``predict.hxx:579-582``): half
+the Sørensen-Dice ``2 CN / (du + dw)``, in the same order.
+A candidate is a pair with ``CN > 0``, not an edge, and a score above 0:
 ``u < w`` over the whole graph, or ``u`` in the request's sources and
 ``w != u``.
 """
@@ -22,38 +29,64 @@ from typing import Iterator, Optional
 
 import torch
 
-__all__ = ["METRICS", "candidate_blocks", "whole_graph_topk",
+__all__ = ["METRICS", "WEIGHTED", "candidate_blocks", "whole_graph_topks",
            "source_candidates", "top_per_source", "served_topk"]
 
-METRICS = ("jaccard_coefficient", "adamic_adar")
+METRICS = ("common_neighbors", "jaccard_coefficient", "sorensen_index",
+           "salton_cosine_similarity", "hub_promoted", "hub_depressed",
+           "leicht_holme_nerman", "adamic_adar", "resource_allocation")
+# The metrics that sum a weight of each common neighbour.
+WEIGHTED = ("adamic_adar", "resource_allocation")
+
+
+def _names(metrics) -> tuple:
+    """The metrics' names as a tuple, each one the reference knows."""
+    names = tuple(metrics)
+    for m in names:
+        if m not in METRICS:
+            raise KeyError(f"the reference knows {METRICS}, not {m!r}")
+    return names
 
 
 def _score(metric, cnt, acc, du, dw, dtype):
-    if metric == "jaccard_coefficient":
-        c = cnt.to(dtype)
-        return c / (du.to(dtype) + dw.to(dtype) - c)
-    if metric == "adamic_adar":
+    if metric in WEIGHTED:
         return acc
-    raise KeyError(f"the reference knows {METRICS}, not {metric!r}")
+    c = cnt.to(dtype)
+    if metric == "common_neighbors":
+        return c
+    a, b = du.to(dtype), dw.to(dtype)
+    if metric == "jaccard_coefficient":
+        return c / (a + b - c)
+    if metric == "sorensen_index":
+        return c / (a + b)
+    if metric == "salton_cosine_similarity":
+        return c / torch.sqrt(a * b)
+    if metric == "hub_promoted":
+        return c / torch.minimum(a, b)
+    if metric == "hub_depressed":
+        return c / torch.maximum(a, b)
+    return c / (a * b)                          # leicht_holme_nerman
 
 
 def _mid_weight(metric, dmid, dtype):
-    if metric != "adamic_adar":
-        return None
-    return 1.0 / torch.log(dmid.to(torch.float64).clamp(min=2.0)).to(dtype)
+    d = dmid.to(torch.float64).clamp(min=1.0)
+    if metric == "adamic_adar":
+        # a mid of degree 1 joins no two vertices; the clamp keeps it finite
+        return 1.0 / torch.log(d.clamp(min=2.0)).to(dtype)
+    return 1.0 / d.to(dtype)                    # resource_allocation
 
 
-def _block_pairs(g, ekeys, src_e, mid_e, skip_e, work_e, metric, dtype,
+def _block_pairs(g, ekeys, src_e, mid_e, skip_e, work_e, names, dtype,
                  upper: bool):
     """The candidates of the first-hop edges given: ``(keys, scores)`` with
-    ``keys = u * n + w`` sorted and distinct."""
+    ``keys = u * n + w`` sorted and distinct and ``scores [M, len(keys)]``,
+    a row a metric of ``names``."""
     n, deg = g.n, g.degrees
     dev = g.indices.device
     total = int(work_e.sum())
-    empty = (torch.empty(0, dtype=torch.int64, device=dev),
-             torch.empty(0, dtype=dtype, device=dev))
     if total == 0:
-        return empty
+        return (torch.empty(0, dtype=torch.int64, device=dev),
+                torch.empty((len(names), 0), dtype=dtype, device=dev))
     rows = torch.repeat_interleave(
         torch.arange(work_e.shape[0], device=dev), work_e)
     start = torch.cumsum(work_e, 0) - work_e
@@ -66,28 +99,32 @@ def _block_pairs(g, ekeys, src_e, mid_e, skip_e, work_e, metric, dtype,
         w, u, rows = w[keep], u[keep], rows[keep]
     key = u * n + w
     del u, w
-    wt = _mid_weight(metric, deg[mid_e], dtype)
     key, perm = torch.sort(key)
     rows = rows[perm]
     del perm
     keys, inv, cnt = torch.unique_consecutive(key, return_inverse=True,
                                               return_counts=True)
     del key
-    acc = None
-    if wt is not None:
-        acc = torch.zeros(keys.shape[0], dtype=dtype, device=dev)
-        acc.index_add_(0, inv, wt[rows])
+    accs = {}
+    for m in WEIGHTED:
+        if m in names:
+            wt = _mid_weight(m, deg[mid_e], dtype)
+            accs[m] = torch.zeros(keys.shape[0], dtype=dtype, device=dev)
+            accs[m].index_add_(0, inv, wt[rows])
+            del wt
     del inv, rows
     p = torch.searchsorted(ekeys, keys).clamp(max=max(ekeys.shape[0] - 1, 0))
     edge = (ekeys[p] == keys) if ekeys.shape[0] else torch.zeros_like(
         keys, dtype=torch.bool)
     keep = ~edge
     keys, cnt = keys[keep], cnt[keep]
-    acc = acc[keep] if acc is not None else None
-    u, w = keys // n, keys % n
-    score = _score(metric, cnt, acc, deg[u], deg[w], dtype)
-    keep = score > 0
-    return keys[keep], score[keep]
+    accs = {m: a[keep] for m, a in accs.items()}
+    du, dw = deg[keys // n], deg[keys % n]
+    score = torch.stack([_score(m, cnt, accs.get(m), du, dw, dtype)
+                         for m in names])
+    del accs, du, dw
+    keep = (score > 0).all(0)
+    return keys[keep], score[:, keep]
 
 
 def _first_hop(g, ekeys, min_degree1: int,
@@ -123,14 +160,16 @@ def _first_hop(g, ekeys, min_degree1: int,
     return src_e, mid_e, skip_e, work_e
 
 
-def candidate_blocks(g, metric: str, min_degree1: int, *,
+def candidate_blocks(g, metrics, min_degree1: int, *,
                      dtype=torch.float64, block: int = 1 << 27
                      ) -> Iterator[tuple[int, int, torch.Tensor,
                                          torch.Tensor]]:
     """Every whole-graph candidate (``u < w``), in blocks of sources of at
     most ``block`` triples (a source with more is a block of its own).
     Yields ``(u_lo, u_hi, keys, scores)``: the sources ``[u_lo, u_hi)``,
-    their candidates' sorted keys and their scores."""
+    their candidates' sorted keys and their scores ``[M, len(keys)]``, a
+    row a metric of ``metrics``."""
+    names = _names(metrics)
     ekeys = g.keys()
     src_e, mid_e, skip_e, work_e = _first_hop(g, ekeys, min_degree1, None)
     per_src = torch.zeros(g.n, dtype=torch.int64, device=work_e.device)
@@ -144,7 +183,7 @@ def candidate_blocks(g, metric: str, min_degree1: int, *,
         e0, e1 = int(g.offsets[lo]), int(g.offsets[hi])
         keys, score = _block_pairs(
             g, ekeys, src_e[e0:e1], mid_e[e0:e1], skip_e[e0:e1],
-            work_e[e0:e1], metric, dtype, upper=True)
+            work_e[e0:e1], names, dtype, upper=True)
         yield lo, hi, keys, score
         lo = hi
 
@@ -159,22 +198,26 @@ def _order_desc(keys, score, n):
     return k // n, k % n, score[order]
 
 
-def whole_graph_topk(g, metric: str, min_degree1: int, k: int, *,
-                     dtype=torch.float64, block: int = 1 << 27):
-    """The top ``k`` whole-graph candidates by score, computed in ``dtype``:
-    ``(u, v, score)`` tensors, score descending (ties broken by key)."""
+def whole_graph_topks(g, metrics, min_degree1: int, k: int, *,
+                      dtype=torch.float64, block: int = 1 << 27) -> dict:
+    """Each metric's top ``k`` whole-graph candidates by score, computed in
+    ``dtype``, from one pass over the candidates: ``{metric: (u, v,
+    score)}``, score descending (ties broken by key)."""
+    names = _names(metrics)
     dev = g.indices.device
-    best_k = torch.empty(0, dtype=torch.int64, device=dev)
-    best_s = torch.empty(0, dtype=dtype, device=dev)
-    for _, _, keys, score in candidate_blocks(g, metric, min_degree1,
+    best = {m: (torch.empty(0, dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=dtype, device=dev)) for m in names}
+    for _, _, keys, score in candidate_blocks(g, names, min_degree1,
                                               dtype=dtype, block=block):
-        best_k = torch.cat([best_k, keys])
-        best_s = torch.cat([best_s, score])
-        if best_s.shape[0] > k:
-            top = torch.topk(best_s.float() if dtype == torch.bfloat16
-                             else best_s, k, sorted=False).indices
-            best_k, best_s = best_k[top], best_s[top]
-    return _order_desc(best_k, best_s, g.n)
+        for m, row in zip(names, score):
+            best_k = torch.cat([best[m][0], keys])
+            best_s = torch.cat([best[m][1], row])
+            if best_s.shape[0] > k:
+                top = torch.topk(best_s.float() if dtype == torch.bfloat16
+                                 else best_s, k, sorted=False).indices
+                best_k, best_s = best_k[top], best_s[top]
+            best[m] = (best_k, best_s)
+    return {m: _order_desc(*best[m], g.n) for m in names}
 
 
 def source_candidates(g, metric: str, min_degree1: int,
@@ -183,8 +226,9 @@ def source_candidates(g, metric: str, min_degree1: int,
     scores)``, keys sorted."""
     ekeys = g.keys()
     src_e, mid_e, skip_e, work_e = _first_hop(g, ekeys, min_degree1, sources)
-    return _block_pairs(g, ekeys, src_e, mid_e, skip_e, work_e, metric,
-                        dtype, upper=False)
+    keys, score = _block_pairs(g, ekeys, src_e, mid_e, skip_e, work_e,
+                               _names((metric,)), dtype, upper=False)
+    return keys, score[0]
 
 
 def top_per_source(u, v, score, per_source: int):

@@ -8,10 +8,12 @@ K1 (``fused_tail``, one launch a non-empty tile) reads a tile's sorted
 the pass's degrees do not fit 16 bits) and one 4 B weight a weighted
 metric, and writes one 4 B selection key a metric and the clamped ``ku``
 and ``kw`` (4 B each).  K2 (``pack_survivors``, one launch a selection that
-takes the survivor pack) reads one 4 B key a filled lane and writes at
-least the ``kk`` survivors' key and lane index (8 B each).  The selection
-takes the pack as the program states it: one segment, a buffer of at least
-2^22 lanes, and ``4 kk`` at most a quarter of it.
+takes the survivor pack, and a pass selects once a metric) reads one 4 B
+key a filled lane and writes at least the ``kk`` survivors' key and lane
+index (8 B each).  The selection takes the pack as the program states it:
+one segment, a buffer of at least 2^22 lanes, and ``4 kk`` at most a
+quarter of it; a pass selected by segments packs in none of them, and
+its merge of the segments' winners is one more selection a metric.
 """
 from __future__ import annotations
 

@@ -121,7 +121,7 @@ def main(argv=None, *, device: str = "cuda", shrink=None) -> int:
 
     rec = drive.run(cfg, traffic, args.seed, args.seconds, bool(args.trace),
                     device=device)
-    ok, checks = judge.verdict(rec.numbers, traffic["limits"])
+    ok, checks = judge.verdict(rec.numbers, judge.flat_limits(traffic))
     correct = ok and rec.failed == 0 and rec.attempted > 0
     folder = "layer_metrics" if args.trace else "end_to_end"
     metrics = {}

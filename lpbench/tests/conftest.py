@@ -36,6 +36,11 @@ def batch_traffic():
 
 
 @pytest.fixture
+def allmetrics():
+    return _json("traffic", "allmetrics.json")
+
+
+@pytest.fixture
 def serve_traffic():
     t = _json("traffic", "serve.json")
     t.update(users=8, warmup_requests=1, trace_seconds=0.05)

@@ -1,13 +1,14 @@
-"""The plain reference against a dense brute force at n <= 300, and the
-control (the reference in bfloat16 in the program's place) failing the
-judge where the program passes, on the CPU."""
+"""The plain reference against a dense brute force at n <= 300, every one
+of the nine metrics, and the control (the reference in bfloat16 in the
+program's place) failing the judge where the program passes, on the
+CPU."""
 import numpy as np
 import pytest
 import torch
 
 from lpbench import control, graph500, judge
-from lpbench.reference import (candidate_blocks, served_topk,
-                               source_candidates, whole_graph_topk)
+from lpbench.reference import (METRICS, candidate_blocks, served_topk,
+                               source_candidates, whole_graph_topks)
 
 CFG = dict(scale=8, edge_factor=16, a=0.57, b=0.19, c=0.19,
            removed_fraction=0.1)
@@ -24,12 +25,23 @@ def _dense(g, metric, d1):
     if d1:
         ok &= deg <= d1
     cnt = (a * ok[None, :]) @ a
-    if metric == "adamic_adar":
-        wt = np.where(deg > 1, 1.0 / np.log(np.maximum(deg, 2.0)), 0.0) * ok
+    du, dv = deg[:, None], deg[None, :]
+    if metric in ("adamic_adar", "resource_allocation"):
+        with np.errstate(divide="ignore"):
+            wt = 1.0 / (np.log(deg) if metric == "adamic_adar" else deg)
+        wt = np.where(ok & (deg > 1), wt, 0.0)
         score = (a * wt[None, :]) @ a
     else:
         with np.errstate(invalid="ignore", divide="ignore"):
-            score = cnt / (deg[:, None] + deg[None, :] - cnt)
+            score = {
+                "common_neighbors": lambda: cnt,
+                "jaccard_coefficient": lambda: cnt / (du + dv - cnt),
+                "sorensen_index": lambda: cnt / (du + dv),
+                "salton_cosine_similarity": lambda: cnt / np.sqrt(du * dv),
+                "hub_promoted": lambda: cnt / np.minimum(du, dv),
+                "hub_depressed": lambda: cnt / np.maximum(du, dv),
+                "leicht_holme_nerman": lambda: cnt / (du * dv),
+            }[metric]()
     cand = (cnt > 0) & (a == 0) & ~np.eye(n, dtype=bool)
     cand &= np.nan_to_num(score) > 0
     return score, cand
@@ -40,36 +52,36 @@ def graph():
     return graph500.make_graph(CFG, 11, "cpu")[0]
 
 
-@pytest.mark.parametrize("metric", ["jaccard_coefficient", "adamic_adar"])
+@pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("d1", [0, 6])
 def test_whole_graph_candidates_match_dense(graph, metric, d1):
     score, cand = _dense(graph, metric, d1)
     cand = np.triu(cand, 1)
     keys, got = [], []
     # small blocks: every block boundary must keep a pair's triples together
-    for lo, hi, k, s in candidate_blocks(graph, metric, d1, block=64):
+    for lo, hi, k, s in candidate_blocks(graph, [metric], d1, block=64):
         assert torch.all((k // graph.n >= lo) & (k // graph.n < hi))
         keys.append(k)
-        got.append(s)
+        got.append(s[0])
     keys, got = torch.cat(keys).numpy(), torch.cat(got).numpy()
     u, v = np.nonzero(cand)
     np.testing.assert_array_equal(keys, u * graph.n + v)
     np.testing.assert_allclose(got, score[u, v], rtol=1e-12)
 
 
-@pytest.mark.parametrize("metric", ["jaccard_coefficient", "adamic_adar"])
+@pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("k", [40, 100000])
 def test_whole_graph_topk_matches_dense(graph, metric, k):
     score, cand = _dense(graph, metric, 0)
     want = np.sort(score[np.triu(cand, 1)])[::-1][:k]
-    u, v, s = whole_graph_topk(graph, metric, 0, k, block=100)
+    u, v, s = whole_graph_topks(graph, [metric], 0, k, block=100)[metric]
     np.testing.assert_allclose(s.numpy(), want, rtol=1e-12)
     np.testing.assert_allclose(score[u.numpy(), v.numpy()], s.numpy(),
                                rtol=1e-12)
     assert np.all(u.numpy() < v.numpy())
 
 
-@pytest.mark.parametrize("metric", ["jaccard_coefficient", "adamic_adar"])
+@pytest.mark.parametrize("metric", METRICS)
 def test_served_matches_dense(graph, metric):
     score, cand = _dense(graph, metric, 0)
     users = torch.tensor([3, 17, 40, 99, 200])
@@ -90,12 +102,35 @@ def test_served_matches_dense(graph, metric):
         np.testing.assert_allclose(got, mine[: len(got)], rtol=1e-12)
 
 
+@pytest.mark.parametrize("d1", [0, 6])
+def test_one_pass_of_nine_metrics_equals_nine_passes(graph, d1):
+    together = list(candidate_blocks(graph, METRICS, d1, block=64))
+    for i, metric in enumerate(METRICS):
+        alone = list(candidate_blocks(graph, [metric], d1, block=64))
+        assert len(alone) == len(together)
+        for (lo, hi, k, s), (lo2, hi2, k2, s2) in zip(alone, together):
+            assert (lo, hi) == (lo2, hi2) and torch.equal(k, k2)
+            assert torch.equal(s[0], s2[i])
+    tops = whole_graph_topks(graph, METRICS, d1, 50, block=100)
+    for metric in METRICS:
+        one = whole_graph_topks(graph, [metric], d1, 50, block=100)[metric]
+        for a, b in zip(tops[metric], one):
+            assert torch.equal(a, b)
+
+
 def test_judge_passes_the_reference_itself(graph):
-    u, v, s = whole_graph_topk(graph, "jaccard_coefficient", 0, 300)
-    nums = judge.judge_whole_graph(graph, "jaccard_coefficient", 0, 300,
-                                   [(u.numpy(), v.numpy(), s.numpy())])
+    u, v, s = whole_graph_topks(graph, ["jaccard_coefficient"], 0,
+                                300)["jaccard_coefficient"]
+    nums = judge.judge_whole_graph(
+        graph, {"metric": "jaccard_coefficient"}, 0, 300,
+        [{"jaccard_coefficient": (u.numpy(), v.numpy(), s.numpy())}])
     assert nums == dict(score_gap=0.0, rank_gap=0.0, invalid_rows=0,
                         count_off=0)
+    tops = whole_graph_topks(graph, METRICS, 0, 300)
+    nums = judge.judge_whole_graph(
+        graph, {"metrics": list(METRICS)}, 0, 300,
+        [{m: tuple(x.numpy() for x in t) for m, t in tops.items()}])
+    assert nums == {f"{n}.{m}": 0 for m in METRICS for n in judge.PER_METRIC}
 
 
 @pytest.mark.parametrize("cell", ["lhub", "ihub", "serve"])
@@ -112,3 +147,23 @@ def test_control_fails_where_the_program_passes(cell, lhub_cfg, ihub_cfg,
     prog["missing"] = ctrl["missing"] = 0
     assert judge.verdict(prog, limits)[0], prog
     assert not judge.verdict(ctrl, limits)[0], ctrl
+
+
+def test_the_bfloat16_control_fails_each_non_count_metric(lhub_cfg,
+                                                          allmetrics):
+    """The program passes every metric's limits; the control fails at
+    least one number of each metric but CN, whose counts bfloat16 holds
+    exactly at this size (all under 256), so it reads 0 there."""
+    limits = judge.flat_limits(allmetrics)
+    cpu = torch.device("cpu")
+    prog = control.program_readings(lhub_cfg, allmetrics, 21, cpu)
+    ctrl = control.control_readings(lhub_cfg, allmetrics, 21, cpu)
+    prog["missing"] = ctrl["missing"] = 0
+    assert judge.verdict(prog, limits)[0], prog
+    for m in METRICS:
+        failed = [n for n in judge.PER_METRIC
+                  if ctrl[f"{n}.{m}"] > limits[f"{n}.{m}"]]
+        if m == "common_neighbors":
+            assert not failed and ctrl[f"score_gap.{m}"] == 0.0
+        else:
+            assert failed, (m, ctrl)

@@ -132,6 +132,25 @@ def test_layer_readers_on_the_canned_trace():
     assert read("k2_roofline") == pytest.approx(100 * k2 / 3.35e12 / 12e-6)
 
 
+def test_span_readers_read_the_slices_annotations():
+    """The program's spans in the traced slice: the mean length of each
+    name's host annotations; the card's copies of them are not read."""
+    spans = [_h("scan.tile", 110, 40, cat="user_annotation"),
+             _h("tile.k1", 112, 6, cat="user_annotation"),
+             _h("scan.tile", 210, 60, cat="user_annotation"),
+             _h("tile.k1", 212, 10, cat="user_annotation"),
+             _h("scan.tile", 110, 500, cat="gpu_user_annotation")]
+    rec = _record(events=EVENTS + spans)
+    read = lambda name: load_reader("layer_metrics", name)(rec)  # noqa
+    assert read("tile_host_us.batch") == pytest.approx(50.0)
+    assert read("k1_host_us.batch") == pytest.approx(8.0)
+    # no span in the slice, no slice, or a serving run: silent
+    for rec in (_record(), _record(events=None),
+                _record(kind="per_user", events=EVENTS + spans)):
+        assert read("tile_host_us.batch") is None
+        assert read("k1_host_us.batch") is None
+
+
 def test_serving_latency_readers():
     # 20 requests before the slice (10..200 ms), two profiled, one after
     calls = [dict(wall_s=w / 1e3, ok=True, traced=None)
@@ -216,3 +235,98 @@ def test_selection_packs_as_the_program_states():
     # 68 tiles of 2^21 lanes on an 80 GB card: one segment
     assert roofline.segments(68, 1 << 21, 1, 80 << 30) == 1
     assert roofline.segments(2104, 1 << 21, 1, 80 << 30) > 1
+
+
+def _packs_per_scoring(passes):
+    return sum(p["packs"] + ("merge_pack" in p) for p in passes)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_k2_is_counted_once_a_metric_as_the_program_launches_it(
+        lhub_cfg, monkeypatch, segmented):
+    """Nine metrics: the harness's count of K2 selections a scoring, times
+    nine, is what the program's pass calls the pack for, in one segment
+    and by segments whose merge packs (the pack's floor and the segment
+    bound set small, the same in the program and in the harness)."""
+    from linkpred_tpu_torch.predict import api, scoring
+    from linkpred_tpu_torch.predict import plan as plan_mod
+
+    from lpbench import graph500
+    from lpbench.reference import METRICS
+
+    monkeypatch.setattr(scoring, "SEL_PACK_MIN", 1 << 12)
+    monkeypatch.setattr(roofline, "PACK_MIN_LANES", 1 << 12)
+    device_bytes = 16 << 30
+    if segmented:
+        # one tile a segment: 3,000 lanes a metric's key and pair
+        monkeypatch.setattr(scoring, "SEG_LANES", 3000)
+        device_bytes = 180000
+    lhub_cfg.update(scale=12)
+    g, _ = graph500.make_graph(lhub_cfg, 3, "cpu")
+    y = drive._program_graph(g)
+    p = plan_mod.build_plan(y, 16, cap=1 << 10, device="cpu")
+    info = drive._pass_info(p, 100, len(METRICS), device_bytes)
+    assert info[0]["packs"] is not segmented
+    assert ("merge_pack" in info[0]) is segmented
+    calls = []
+    real = scoring.pack_survivors
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(scoring, "pack_survivors", counted)
+    api.predict_links_multi(y, METRICS, 16,
+                            options=api.PredictOptions(max_edges=100),
+                            plan=p, device="cpu")
+    # the untimed warm-up pass and the timed one
+    assert len(calls) == 2 * len(METRICS) * _packs_per_scoring(info) > 0
+
+
+def test_k2_roofline_counts_nine_launches_a_selection():
+    """A nine-metric record: K2 launches nine times a packing selection,
+    and the bytes are nine selections'; nine times fewer launches are not
+    read."""
+    nine = []
+    for e in EVENTS:
+        if e.get("cat") == "gpu_memset" and e["ts"] in (140, 240):
+            continue
+        if "pack_onepass" in e["name"]:
+            for i in range(9):
+                t = e["ts"] + 0.01 * i
+                nine.append(_k("Memset (Device)", t, 0.001,
+                               cat="gpu_memset"))
+                nine.append(_k(e["name"], t + 0.001, 4))
+                nine.append(_k("pack_fill(int const*)", t + 0.005, 1))
+        elif "pack_fill" not in e["name"]:
+            nine.append(e)
+    rec = _record(events=nine, n_metrics=9, n_weighted=2)
+    read = lambda name: load_reader("layer_metrics", name)(rec)  # noqa
+    k2 = 2 * 9 * roofline.k2_bytes(1000, 64)
+    assert read("k2_roofline") == pytest.approx(
+        100 * k2 / 3.35e12 / (18 * (0.001 + 4 + 1) * 1e-6))
+    # K1: one launch a tile whatever the metrics, 64 B a lane for nine
+    assert roofline.k1_bytes([1000], wide_degrees=False, n_weighted=2,
+                             n_metrics=9) == 64 * 1000
+    assert read("k1_roofline") == pytest.approx(
+        100 * 2 * 64 * 1000 / 3.35e12 / 20e-6)
+    # a merge of segments' winners that packs counts as a selection too
+    rec.passes[0]["packs"] = False
+    rec.passes[0]["merge_pack"] = dict(filled=5000, kk=100)
+    assert read("k2_roofline") == pytest.approx(
+        100 * 2 * 9 * roofline.k2_bytes(5000, 100) / 3.35e12
+        / (18 * 5.001e-6))
+    assert load_reader("layer_metrics", "k2_roofline")(
+        _record(n_metrics=9)) is None
+
+
+def test_segments_follow_the_metrics_as_the_program_cuts_them(monkeypatch):
+    from linkpred_tpu_torch.predict import scoring
+
+    assert roofline.segments(100, 1 << 21, 1, 80 << 30) == 1
+    assert roofline.segments(100, 1 << 21, 9, 80 << 30) == 2
+    monkeypatch.setattr(scoring, "SEG_LANES", 1 << 29)
+    for tiles in (60, 100, 300, 2200):
+        for m in (1, 2, 9):
+            assert scoring._segments(tiles, 1 << 21, m, "cpu")[0] == \
+                roofline.segments(tiles, 1 << 21, m, 80 << 30)
