@@ -22,7 +22,7 @@ import torch
 
 from ..graph import CSRGraph
 from ..utils.device import free_bytes, resolve_device
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from ..utils.timing import measure_duration
 from .metrics import get_metric
 from .plan import TilePlan, build_plan
@@ -251,7 +251,8 @@ def predict_links_multi(
     The call is the span ``api.call``; inside it ``plan.build`` (where it
     builds the plan), ``api.memcheck``, ``api.upload``, ``api.host_hubs``,
     ``api.warmup``, ``api.score``, ``api.copy_back`` and ``api.merge``
-    (``utils/profiling.py``)."""
+    (``utils/profiling.py``); the counter ``api.rows_back`` adds the rows
+    copied back."""
     with span("api.call"):
         return _predict_links_multi(
             g, metrics, min_degree1, max_factor2, options, cap, plan,
@@ -345,6 +346,7 @@ def _predict_links_multi(g, metrics, min_degree1, max_factor2, options, cap,
         with span("api.copy_back"):
             parts = [(t.scores[i].cpu().numpy(), t.u[i].cpu().numpy(),
                       t.v[i].cpu().numpy()) for t in tops]
+        count("api.rows_back", sum(p[0].shape[0] for p in parts))
         t1 = time.perf_counter()
         with span("api.merge"):
             if name in host_rows:

@@ -28,9 +28,12 @@ holding ``tile.gather`` (the window reads, or the edge tile's slot map and
 gathers), ``tile.sort`` (:func:`keyed_sort`) and ``tile.k1`` (the
 :func:`fused_tail` wrapper); ``scan.select`` (a selection with its
 survivor pack and the host sync on its count) and
-``scan.merge_segments``.  Counters: ``select.packed_arm`` and
-``select.sort_arm`` (which arm of the packed selection ran),
-``scan.segments`` (the segments a segmented selection selected over).
+``scan.merge_segments``, each holding ``select.metric`` (one metric's
+selection: the arg-select and the gathers of its pairs).  Counters:
+``select.packed_arm`` and ``select.sort_arm`` (which arm of the packed
+selection ran), ``select.full_sort`` (selections sent straight to one full
+sort, the pack not tried), ``scan.segments`` (the segments a segmented
+selection selected over).
 
 Not ported: the u32 engine (``key64=False``; the port keeps one engine) and
 the mesh.  The reference's chunked dispatch existed only for its device
@@ -322,6 +325,7 @@ def _argselect(key, kk: int, allow_pack: bool = True):
     if (allow_pack and total >= SEL_PACK_MIN
             and kk * 4 <= total // compact.PACK_RATIO):
         return _argselect_packed(key, kk)
+    count("select.full_sort")
     return _argselect_sort(key, kk)
 
 
@@ -332,10 +336,11 @@ def _select_topk(keys, us, vs, k: int, allow_pack: bool = True) -> TopK:
     kk = min(k, keys.shape[1])
     out_s, out_u, out_v = [], [], []
     for row in keys:
-        sk, idx = _argselect(row, kk, allow_pack)
-        out_s.append(desc_key_score(sk))
-        out_u.append(us[idx])
-        out_v.append(vs[idx])
+        with span("select.metric"):
+            sk, idx = _argselect(row, kk, allow_pack)
+            out_s.append(desc_key_score(sk))
+            out_u.append(us[idx])
+            out_v.append(vs[idx])
     return TopK(torch.stack(out_s), torch.stack(out_u), torch.stack(out_v))
 
 

@@ -5,13 +5,14 @@ capture with a per-op summary (counterpart of
 The reference's observability is wall-clock only.  The port adds:
 
 * **Spans** (:func:`span`): a context manager at each layer boundary of
-  the program (``plan.*``, ``api.*``, ``scan.*``, ``tile.*``).  Recording
-  is off by default; :func:`enable` turns it on and :func:`drain` returns
-  and clears what was recorded.  A record holds the name, start and end
-  (``time.perf_counter_ns``), its id, its parent's id and a call id: the
-  id of the outermost span open when it started (one ``predict_links``
-  call, or one ``build_plan`` called directly).  :func:`wall_ns` places a
-  stamp on the wall clock through the anchor pair taken at :func:`enable`.
+  the program (``plan.*``, ``api.*``, ``scan.*``, ``tile.*``,
+  ``select.metric``).  Recording is off by default; :func:`enable` turns
+  it on and :func:`drain` returns and clears what was recorded.  A record
+  holds the name, start and end (``time.perf_counter_ns``), its id, its
+  parent's id and a call id: the id of the outermost span open when it
+  started (one ``predict_links`` call, or one ``build_plan`` called
+  directly).  :func:`wall_ns` places a stamp on the wall clock through the
+  anchor pair taken at :func:`enable`.
   The recorder keeps one stack of open spans, for the one thread that
   drives the card.
   While a ``torch.profiler`` session is active, a span also opens
@@ -24,8 +25,11 @@ The reference's observability is wall-clock only.  The port adds:
   ``k1.launches`` and ``k1.killer_launches`` (CUDA launches of K1, and of
   those the ones with killers), ``k2.launches`` (of K2),
   ``select.packed_arm`` and ``select.sort_arm`` (which arm of the packed
-  selection ran), ``scan.segments`` (segments the segmented selection
-  selected over), ``scan.tiles`` (tiles the tile loop scored),
+  selection ran), ``select.full_sort`` (selections sent straight to one
+  full sort, the pack not tried), ``scan.segments`` (segments the
+  segmented selection selected over), ``scan.tiles`` (tiles the tile loop
+  scored), ``api.rows_back`` (rows of the passes' top k copied back to the
+  host, over metrics and passes),
   ``plan.firsthop_rows`` (CSR rows a plan's first hop read for a source
   set) and ``plan.firsthop_scans`` (plans whose first hop scanned every
   edge).

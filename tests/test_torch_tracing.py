@@ -27,7 +27,7 @@ PLAN = {"plan.build", "plan.firsthop", "plan.route"}
 API = {"api.call", "api.memcheck", "api.upload", "api.warmup", "api.score",
        "api.copy_back", "api.merge"}
 TILES = {"scan.pass", "scan.tile", "tile.gather", "tile.sort", "tile.k1",
-         "scan.select"}
+         "scan.select", "select.metric"}
 EVERY = (PLAN | API | TILES | {"plan.expand", "plan.emit", "plan.edge_stream",
                                "api.host_hubs", "api.top_per_source",
                                "scan.merge_segments"})
