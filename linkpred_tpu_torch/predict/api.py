@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..graph import CSRGraph
+from ..ops.topk import desc_score_key, spread_invalid
 from ..utils.device import free_bytes, resolve_device
 from ..utils.profiling import count, span
 from ..utils.timing import measure_duration
@@ -46,6 +47,17 @@ _DEFAULT_MAX_EDGES = 1 << 20
 # 64.231 and 88.031; this is the largest, rounded up.
 TILE_BYTES_PER_LANE = 89
 
+# Device bytes a row that one metric's merge of the passes' winners
+# allocates while it runs (:func:`_merge_winners`): the concatenated score,
+# u and v, the selection key and its temporaries, the stable sort's keys,
+# permutation and scratch.  The merged rows of every metric are priced
+# apart.  Measured as max_memory_allocated over the merge, less what was
+# allocated before it and the merged rows, over the rows of one metric:
+# on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (torch
+# 2.11.0+cu128), 17,573,888 rows a metric, 48.42 B at one metric and
+# 52.21 at nine; this is the largest, rounded up.
+MERGE_BYTES_PER_ROW = 53
+
 
 @dataclasses.dataclass
 class PredictOptions:
@@ -60,9 +72,9 @@ class PredictResult:
     u: np.ndarray          # int32[E] predicted source
     v: np.ndarray          # int32[E] predicted target
     score: np.ndarray      # float32[E], descending
-    time_ms: float         # scoring + ordering on the host
+    time_ms: float         # scoring + the merge of the passes' winners
     scoring_ms: float      # the device pass only
-    transfer_ms: float = 0.0  # device->host copy of the top k, not in time_ms
+    transfer_ms: float = 0.0  # copy of the merged rows to the host
 
     @property
     def edges(self):
@@ -170,11 +182,17 @@ def device_bytes(g: CSRGraph, passes, num_metrics: int, k: int,
       ``TILE_BYTES_PER_LANE``;
     * ``gather``: under a mesh of several ranks, the gathered ``[D, M, k]``
       buffers and their stack;
+    * ``merge``: the merge of the winners (:func:`_merge_winners`): one
+      metric's rows, ``k`` a pass with tiles plus at most ``min(k, n)`` a
+      host-scored hub, x ``MERGE_BYTES_PER_ROW``, and every metric's
+      merged rows, 12 B a row, twice (their compaction);
 
     and ``total``."""
     from ..parallel.mesh import pending_bytes
 
-    need = dict(stream=0, middeg=0, csr=0, selection=0, tile=0, gather=0)
+    need = dict(stream=0, middeg=0, csr=0, selection=0, tile=0, gather=0,
+                merge=0)
+    rows = sum(p.host_src.size for p in passes) * min(k, g.n)
     for p in passes:
         if mesh is None:
             memo = p._device.get(str(device), {})
@@ -193,11 +211,15 @@ def device_bytes(g: CSRGraph, passes, num_metrics: int, k: int,
             need["selection"] = max(need["selection"],
                                     seg * p.cap * (4 * num_metrics + 8))
             need["tile"] = max(need["tile"], p.cap * TILE_BYTES_PER_LANE)
+        if p.num_tiles_padded:
+            rows += k
     if not csr_resident and not all(p.packed for p in passes):
         h = g.host()
         need["csr"] = h.indices.nbytes + h.degrees.nbytes
     if mesh is not None and mesh.size > 1:
         need["gather"] = 2 * mesh.size * 3 * num_metrics * k * 4
+    need["merge"] = (rows * MERGE_BYTES_PER_ROW
+                     + 2 * num_metrics * min(k, rows) * 12)
     need["total"] = sum(need.values())
     return need
 
@@ -211,6 +233,53 @@ def _check_device_memory(need: dict, device) -> None:
             f"predict_links: the pass needs {need['total']} B on {device} "
             f"({parts}) but {free} B are free; nothing was uploaded. Use a "
             "smaller cap, fewer metrics, or a mesh of more devices")
+
+
+def _merge_winners(tops, host_rows: dict, names, max_edges: int, device):
+    """Merge each metric's winners on ``device``: the passes' rows in
+    scoring order, then the host scorer's, the non-finite scores dropped
+    and the best ``max_edges`` kept, best first, the earlier row first
+    among equal scores (``np.argsort(-scores, kind="stable")`` over the
+    concatenation, which ties -0.0 with +0.0).  Returns ``(rows, lengths)``:
+    every metric's kept rows stacked as int32 ``[3, sum(lengths)]`` (score
+    bits, u, v) in ``names`` order, and each metric's count, read with one
+    host sync."""
+    base = sum(int(t.scores.shape[1]) for t in tops)
+    total = [base + (host_rows[name][0].shape[0] if name in host_rows else 0)
+             for name in names]
+    take = [min(max_edges, t) for t in total]
+    rows = torch.empty((3, sum(take)), dtype=torch.int32, device=device)
+    finite, start = [], 0
+    for i, name in enumerate(names):
+        parts = [(t.scores[i], t.u[i], t.v[i]) for t in tops]
+        if name in host_rows:
+            parts.append(tuple(torch.from_numpy(a).to(device)
+                               for a in host_rows[name]))
+        scores, us, vs = (torch.cat(x) for x in zip(*parts))
+        count("api.merge_rows", scores.shape[0])
+        ok = torch.isfinite(scores)
+        finite.append(ok.sum())
+        # x + 0.0 maps -0.0 to +0.0; every non-finite row sorts last
+        keyed = torch.where(ok, scores + 0.0, float("-inf"))
+        lane = torch.arange(scores.shape[0], dtype=torch.int32, device=device)
+        key = spread_invalid(desc_score_key(keyed), keyed, lane)
+        del ok, keyed, lane
+        top = torch.sort(key, stable=True).indices[:take[i]]
+        del key
+        dst = slice(start, start + take[i])
+        start += take[i]
+        for j, src in enumerate((scores.view(torch.int32), us, vs)):
+            torch.index_select(src, 0, top, out=rows[j, dst])
+        # one metric's buffers at a time: free them before the next's
+        del scores, us, vs, top
+    lengths = [min(int(c), t)
+               for c, t in zip(torch.stack(finite).tolist(), take)]
+    if lengths != take:
+        # some metric took non-finite rows: keep only its finite ones
+        starts = np.cumsum([0, *take[:-1]])
+        rows = torch.cat([rows[:, s:s + n] for s, n in zip(starts, lengths)],
+                         dim=1)
+    return rows, lengths
 
 
 def predict_links_multi(
@@ -230,9 +299,12 @@ def predict_links_multi(
 ) -> dict:
     """Predict links for several metrics in one pass on ``device``: the
     expansion, sort and run reduction are shared and only the formulas and
-    the selections fan out.  Returns ``{metric_name: PredictResult}``;
-    ``scoring_ms``/``time_ms`` are the pass time split evenly across the
-    metrics.
+    the selections fan out.  Each metric's winners of every pass (and of
+    the host-scored hubs) are merged on the device, and the merged rows of
+    every metric come back to the host in one copy.  Returns
+    ``{metric_name: PredictResult}``; ``scoring_ms`` (the pass),
+    ``time_ms`` (the pass and the merge) and ``transfer_ms`` (the copy) are
+    split evenly across the metrics.
 
     ``min_degree1`` = 0 is IHub, > 0 LHub.  ``sources``: serving mode (score
     only pairs whose source is in the subset, directed candidates).
@@ -251,8 +323,9 @@ def predict_links_multi(
     The call is the span ``api.call``; inside it ``plan.build`` (where it
     builds the plan), ``api.memcheck``, ``api.upload``, ``api.host_hubs``,
     ``api.warmup``, ``api.score``, ``api.copy_back`` and ``api.merge``
-    (``utils/profiling.py``); the counter ``api.rows_back`` adds the rows
-    copied back."""
+    (``utils/profiling.py``); the counter ``api.merge_rows`` adds the rows
+    that enter the merge, over metrics, and ``api.rows_back`` the rows
+    copied back, at most ``max_edges`` a metric."""
     with span("api.call"):
         return _predict_links_multi(
             g, metrics, min_degree1, max_factor2, options, cap, plan,
@@ -340,29 +413,34 @@ def _predict_links_multi(g, metrics, min_degree1, max_factor2, options, cap,
     ts, tops = measure_duration(run_scoring, o.repeat, device=device)
     ts += host_ms
 
-    results = {}
-    for i, name in enumerate(names):
-        t0 = time.perf_counter()
-        with span("api.copy_back"):
-            parts = [(t.scores[i].cpu().numpy(), t.u[i].cpu().numpy(),
-                      t.v[i].cpu().numpy()) for t in tops]
-        count("api.rows_back", sum(p[0].shape[0] for p in parts))
-        t1 = time.perf_counter()
-        with span("api.merge"):
-            if name in host_rows:
-                parts.append(host_rows[name])
-            scores, us, vs = (np.concatenate(x) for x in zip(*parts))
-            valid = np.isfinite(scores)
-            scores, us, vs = scores[valid], us[valid], vs[valid]
-            order = np.argsort(-scores, kind="stable")[:max_edges]
-            t2 = time.perf_counter()
-            results[name] = PredictResult(
-                u=us[order].astype(np.int32), v=vs[order].astype(np.int32),
-                score=scores[order].astype(np.float32),
-                time_ms=ts / len(names) + (t2 - t1) * 1e3,
-                scoring_ms=ts / len(names),
-                transfer_ms=(t1 - t0) * 1e3,
-            )
+    t0 = time.perf_counter()
+    with span("api.merge"):
+        rows, lengths = _merge_winners(tops, host_rows, names, max_edges,
+                                       device)
+    t1 = time.perf_counter()
+    with span("api.copy_back"):
+        # Page-locked memory from PyTorch's caching host allocator, which
+        # hands a block out again only once every array viewing it is gone,
+        # so no result aliases a later call's.  On an H100 it took the
+        # rows at ~40 GB/s, where fresh pageable memory took ~2 GB/s.
+        back = torch.empty(rows.shape, dtype=rows.dtype,
+                           pin_memory=rows.is_cuda)
+        back.copy_(rows)
+        back = back.numpy()
+    t2 = time.perf_counter()
+    count("api.rows_back", back.shape[1])
+    scoring_ms = ts / len(names)
+    merge_ms, transfer_ms = ((b - a) * 1e3 / len(names)
+                             for a, b in ((t0, t1), (t1, t2)))
+    results, start = {}, 0
+    for name, n in zip(names, lengths):
+        cols = slice(start, start + n)
+        start += n
+        results[name] = PredictResult(
+            u=back[1, cols], v=back[2, cols],
+            score=back[0, cols].view(np.float32),
+            time_ms=scoring_ms + merge_ms, scoring_ms=scoring_ms,
+            transfer_ms=transfer_ms)
     return results
 
 

@@ -28,8 +28,10 @@ The reference's observability is wall-clock only.  The port adds:
   selection ran), ``select.full_sort`` (selections sent straight to one
   full sort, the pack not tried), ``scan.segments`` (segments the
   segmented selection selected over), ``scan.tiles`` (tiles the tile loop
-  scored), ``api.rows_back`` (rows of the passes' top k copied back to the
-  host, over metrics and passes),
+  scored), ``api.merge_rows`` (rows of the passes' winners and the
+  host-scored hubs' that enter the device merge, over metrics),
+  ``api.rows_back`` (merged rows copied back to the host, at most
+  ``max_edges`` a metric, over metrics),
   ``plan.firsthop_rows`` (CSR rows a plan's first hop read for a source
   set) and ``plan.firsthop_scans`` (plans whose first hop scanned every
   edge).

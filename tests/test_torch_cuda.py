@@ -22,8 +22,8 @@ from linkpred_tpu_torch.experiments import (pallas_bitonic, pallas_bitonic2,
 from linkpred_tpu_torch.kernels import _build
 from linkpred_tpu_torch.ops import compact
 from linkpred_tpu_torch.ops import fused_tail as ft
-from linkpred_tpu_torch.ops.topk import desc_key_score
-from linkpred_tpu_torch.predict import scoring
+from linkpred_tpu_torch.ops.topk import TopK, desc_key_score
+from linkpred_tpu_torch.predict import api, scoring
 from linkpred_tpu_torch.utils.profiling import counter
 from linkpred_tpu_torch.predict.plan import build_plan
 
@@ -885,3 +885,78 @@ def test_world_size_1_nccl_pass(rng, cuda, tmp_path):
                 sim.same_result(got[name], want[name], name)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------- the merge of the winners on the card
+
+def _winners(rng, device, passes, metrics):
+    """Each pass's winners ``TopK [metrics, k]``: scores from a pool with
+    ties, +-inf, NaN and both zeros; random pairs."""
+    pool = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 0.5, 1.0, 2.0,
+                     -1.0], dtype=np.float32)
+    out = []
+    for k in passes:
+        s = rng.choice(pool, (metrics, k))
+        u, v = rng.integers(0, 1 << 30, (2, metrics, k)).astype(np.int32)
+        out.append(TopK(*(torch.as_tensor(a, device=device)
+                          for a in (s, u, v))))
+    return out
+
+
+@pytest.mark.parametrize("passes,max_edges", [((3000, 1700, 40), 2500),
+                                              ((1 << 21, 1 << 20), 1 << 21)])
+def test_merge_on_the_card_matches_the_cpu(rng, cuda, passes, max_edges):
+    """The card's merge gives the CPU merge's rows bit for bit (the CPU
+    merge is held against the host NumPy merge in test_torch_merge.py),
+    the host scorer's rows included."""
+    names = ("common_neighbors", "jaccard_coefficient", "adamic_adar")
+    tops = _winners(rng, cuda, passes, len(names))
+    host = {names[1]: (rng.choice([1.0, np.inf], 99).astype(np.float32),
+                       *rng.integers(0, 99, (2, 99)).astype(np.int32))}
+    cpu = [TopK(*(x.cpu() for x in t)) for t in tops]
+    want, want_n = api._merge_winners(cpu, host, names, max_edges,
+                                      torch.device("cpu"))
+    got, got_n = api._merge_winners(tops, host, names, max_edges, cuda)
+    assert got.is_cuda and got_n == want_n
+    assert torch.equal(got.cpu(), want)
+
+
+def test_merge_bytes_within_the_price(rng, cuda):
+    """What the merge allocates stays within ``device_bytes``' item: rows
+    x ``MERGE_BYTES_PER_ROW`` and every metric's merged rows twice."""
+    passes, metrics, max_edges = (1 << 22, 1 << 22, 1 << 16), 2, 1 << 22
+    tops = _winners(rng, cuda, passes, metrics)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    api._merge_winners(tops, {}, ("cn", "aa"), max_edges, cuda)
+    torch.cuda.synchronize()
+    rows = sum(passes)
+    priced = (rows * api.MERGE_BYTES_PER_ROW
+              + 2 * metrics * min(max_edges, rows) * 12)
+    assert torch.cuda.max_memory_allocated() - before <= priced
+
+
+def test_results_on_the_card_do_not_share_memory_across_calls(rng, cuda):
+    """The merged rows come back into page-locked blocks that PyTorch's
+    host allocator hands out again only once their arrays are gone: a
+    later call neither reuses nor writes an earlier call's arrays."""
+    n, m = 300, 1800
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    g = lt.from_edges(np.concatenate([src, dst]), np.concatenate([dst, src]),
+                      n=n)
+    call = lambda: lt.predict_links_multi(  # noqa: E731
+        g, ("cn", "aa"), min_degree1=0, cap=1024, device=cuda,
+        options=lt.PredictOptions(max_edges=500))
+    first = call()
+    kept = {name: (r.u.copy(), r.v.copy(), r.score.copy())
+            for name, r in first.items()}
+    for _ in range(3):
+        later = call()
+        for name, r in first.items():
+            for a, b in zip((r.u, r.v, r.score), kept[name]):
+                np.testing.assert_array_equal(a, b)
+            for a in (r.u, r.v, r.score):
+                for b in (later[name].u, later[name].v, later[name].score):
+                    assert not np.shares_memory(a, b)
+        del later

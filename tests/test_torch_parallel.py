@@ -470,9 +470,11 @@ def test_memory_check_prices_what_the_pass_uploads(rng):
     middeg = sum(q.host_stream(True)[-1].nbytes for q in passes)
     seg = max(q.num_tiles_padded * q.cap * (4 * 2 + 8) for q in passes)
     tile = max(q.cap for q in passes) * api.TILE_BYTES_PER_LANE
+    rows = len(passes) * k
+    merge = rows * api.MERGE_BYTES_PER_ROW + 2 * 2 * min(k, rows) * 12
     assert need == dict(stream=stream, middeg=middeg, csr=0, selection=seg,
-                        tile=tile, gather=0,
-                        total=stream + middeg + seg + tile)
+                        tile=tile, gather=0, merge=merge,
+                        total=stream + middeg + seg + tile + merge)
     # what is already on the device is not priced again
     for q in passes:
         q.device_stream("cpu", weighted=True)
