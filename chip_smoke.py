@@ -22,7 +22,7 @@ Phases 5 and 6 also measure the device bytes a lane that one tile
 allocates (``max_memory_allocated`` around it, less what was resident):
 the packed tile at cap 2^21 and 2^23 and the edge tile at cap 2^21 with
 killers, Jaccard and all nine metrics; each must stay at or under
-``predict.api.TILE_BYTES_PER_LANE``, what the memory check prices.
+``predict.scoring.TILE_BYTES_PER_LANE``, what the memory check prices.
 
 Phase 7 drives the JAX package's sort-feasibility probes as ported: P2 and
 P3 (the bitonic network, ``bitonic.cu``) bit for bit against their plain
@@ -1002,7 +1002,7 @@ def tile_bytes_a_lane(device, where, p, y, metric_names, indices=None,
     fullest) allocates while it runs, beyond what was allocated before it
     (the stream resident): ``max_memory_allocated`` after a reset, less
     ``memory_allocated`` before, over cap; after one warm-up call.  Fails
-    if it exceeds ``predict.api.TILE_BYTES_PER_LANE``, the figure the
+    if it exceeds ``predict.scoring.TILE_BYTES_PER_LANE``, the figure the
     memory check prices."""
     import torch
     from linkpred_tpu_torch.predict import api, scoring
@@ -1026,10 +1026,10 @@ def tile_bytes_a_lane(device, where, p, y, metric_names, indices=None,
     print(f"  C11 {where}: tile {t} of cap 2^{p.cap.bit_length() - 1}, "
           f"{len(metric_names)} metric(s): {peak - before} B above the "
           f"{before} B resident, {per_lane:.3f} B a lane (priced "
-          f"{api.TILE_BYTES_PER_LANE})")
-    check(per_lane <= api.TILE_BYTES_PER_LANE,
+          f"{scoring.TILE_BYTES_PER_LANE})")
+    check(per_lane <= scoring.TILE_BYTES_PER_LANE,
           f"C11 {where}: a tile took {per_lane:.3f} B a lane, over the "
-          f"{api.TILE_BYTES_PER_LANE} that device_bytes prices")
+          f"{scoring.TILE_BYTES_PER_LANE} that device_bytes prices")
     return per_lane
 
 

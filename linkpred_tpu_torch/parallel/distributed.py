@@ -4,8 +4,8 @@
 The model: one process per rank, :func:`init_distributed` once at start-up,
 then :func:`make_global_mesh`, a 1-D mesh over every rank.  The layers
 above are rank-count agnostic: each rank builds and uploads only its block
-of the stream (``mesh.shard_stream``), the merge is one all-gather of
-``[M, k]`` buffers, and every rank computes the same result.
+of the stream (``mesh.shard_stream``), one all-gather of ``[M, k]``
+buffers feeds the merge, and every rank computes the same result.
 
 ``python -m linkpred_tpu_torch.parallel.sim N`` starts N coordinated rank
 processes on one host and holds the sharded result against the

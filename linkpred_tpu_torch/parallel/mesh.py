@@ -14,9 +14,9 @@ is one worker:
   stream memory is ~total/D (:func:`shard_stream`);
 * each rank scans its tiles with the single-device engine
   (``scoring.score_tiles``: the tile sort, K1, K2), pads its top k to
-  ``[M, k]``, and one ``all_gather`` plus one selection per metric
-  (``scoring._merge_stacked``) gives every rank the same result
-  (:func:`score_tiles_sharded`).
+  ``[M, k]``, and one ``all_gather`` hands every rank's winners to every
+  rank (:func:`score_tiles_sharded`); they meet in the API's merge
+  (``predict.api._merge_winners``), so every rank has the same result.
 
 A :class:`Mesh` is the port's stand-in for a 1-D ``jax.sharding.Mesh``: the
 process group, this rank's device, its rank and the group's size.  Without
@@ -42,7 +42,7 @@ from ..utils.device import resolve_device
 
 __all__ = ["Mesh", "ShardLayout", "make_mesh", "pad_tiles_for_mesh",
            "shard_layout", "block_arrays", "shard_stream", "pending_bytes",
-           "score_tiles_sharded", "gather_topk"]
+           "score_tiles_sharded", "gather_topk", "gather_bytes"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -254,35 +254,40 @@ def _invalid_topk(m: int, k: int, device) -> TopK:
 
 def gather_topk(local: TopK, mesh: Mesh, k: int) -> TopK:
     """Pad this rank's ``[M, k']`` top k to ``[M, k]`` with empty slots
-    (-inf), all-gather it over the mesh and return the ``[D, M, k]``
-    stack.  NCCL gathers on the card; gloo gathers host tensors, so under
-    gloo the buffer goes through the host and comes back to the rank's
-    device."""
+    (-inf), all-gather it over the mesh and return every rank's ``[M, k]``
+    side by side in rank order, ``[M, D x k]``.  NCCL gathers on the card;
+    gloo gathers host tensors, so under gloo the buffer goes through the
+    host and comes back to the rank's device."""
     m, kk = local.scores.shape
     buf = _invalid_topk(m, k, local.scores.device)
     for dst, src in zip(buf, local):
         dst[:, :kk] = src
     if mesh.group is None:
-        return TopK(*(x[None] for x in buf))
+        return buf
     # one collective: the scores' bits ride beside u and v as int32
     packed = torch.stack([buf.scores.view(torch.int32), buf.u, buf.v])
     host = mesh.backend == "gloo" and packed.device.type != "cpu"
     send = packed.cpu() if host else packed
     parts = [torch.empty_like(send) for _ in range(mesh.size)]
     dist.all_gather(parts, send, group=mesh.group)
-    out = torch.stack(parts).to(packed.device)
-    return TopK(out[:, 0].view(torch.float32), out[:, 1], out[:, 2])
+    out = torch.stack(parts, dim=2).to(packed.device).reshape(3, m, -1)
+    return TopK(out[0].view(torch.float32), out[1], out[2])
+
+
+def gather_bytes(mesh: Mesh, num_metrics: int, k: int) -> int:
+    """The device bytes :func:`gather_topk` allocates: the ranks' int32
+    ``[3, M, k]`` parts and their side-by-side copy; 0 for one rank."""
+    return 0 if mesh.size == 1 else 2 * mesh.size * 3 * num_metrics * k * 4
 
 
 def score_tiles_sharded(stream, tile_start, min_score: float, *,
                         metric_names, k: int, mesh: Mesh, **kw) -> TopK:
-    """One rank's part of a sharded pass, and the merge.  ``stream`` and
-    ``tile_start`` are :func:`shard_stream`'s (None for a rank with no
-    tiles, which still joins the gather with an empty buffer); the other
-    keywords are ``scoring.tile_scorer``'s.  Every rank returns the same
-    ``[M, k]`` TopK; a one-rank mesh returns its own top k, which already
-    is the answer, with no gather and no merge."""
-    from ..predict.scoring import _merge_stacked, score_tiles
+    """One rank's part of a sharded pass.  ``stream`` and ``tile_start``
+    are :func:`shard_stream`'s (None for a rank with no tiles, which still
+    joins the gather with an empty buffer); the other keywords are
+    ``scoring.tile_scorer``'s.  Returns every rank's winners, ``[M, D x
+    k]``, the same on every rank; a one-rank mesh its own, not gathered."""
+    from ..predict.scoring import score_tiles
 
     if stream is None:
         local = _invalid_topk(len(metric_names), k, mesh.device)
@@ -290,6 +295,4 @@ def score_tiles_sharded(stream, tile_start, min_score: float, *,
         local = score_tiles(stream, tile_start, min_score,
                             metric_names=metric_names, k=k,
                             device=mesh.device, **kw)
-    if mesh.size == 1:
-        return local
-    return _merge_stacked(gather_topk(local, mesh, k), k)
+    return local if mesh.size == 1 else gather_topk(local, mesh, k)

@@ -75,18 +75,12 @@ def same_result(got, want, where: str) -> None:
                                  "differ")
 
 
-def _stream_totals(passes, weighted: bool):
-    """(padded total bytes of the full streams, bytes of one cap-lane
-    window tail of every array) over the passes."""
-    total = tail = 0
-    for p in passes:
-        for a in p.host_stream(weighted):
-            if a is not None and a.shape[0] > 1:
-                total += a.nbytes
-                tail += p.cap * a.itemsize
-            elif a is not None:
-                total += a.nbytes
-    return total, tail
+def _cap_tail(passes, weighted: bool) -> int:
+    """Bytes of one cap-lane window tail of every stream array over the
+    passes."""
+    return sum(p.cap * a.itemsize for p in passes
+               for a in p.host_stream(weighted)
+               if a is not None and a.shape[0] > 1)
 
 
 def _launches():
@@ -125,14 +119,17 @@ def run_case(case: dict, mesh) -> tuple:
     priced = api.device_bytes(g, passes, len(names), k, weighted,
                               mesh.device, mesh)
     free = free_bytes(mesh.device)
-    padded_total, cap_tail = _stream_totals(passes, weighted)
+    # the plain pass's uploads, none made yet: the padded full streams
+    padded_total = sum(sum(p.upload_bytes(mesh.device, weighted))
+                       for p in passes)
+    cap_tail = _cap_tail(passes, weighted)
 
     k1, k2 = _launches()
     res = predict_links_multi(g, names, plan=plan, options=opts, mesh=mesh,
                               sources=sources)
     k1, k2 = _launches()[0] - k1, _launches()[1] - k2
 
-    # the merge's collective alone, on a [M, k] buffer of this pass's size
+    # the pass's collective alone, on a [M, k] buffer of this pass's size
     buf = TopK(*(torch.zeros((len(names), k), dtype=dt, device=mesh.device)
                  for dt in (torch.float32, torch.int32, torch.int32)))
     gather_topk(buf, mesh, k)

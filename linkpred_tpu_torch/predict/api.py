@@ -27,25 +27,13 @@ from ..utils.profiling import count, span
 from ..utils.timing import measure_duration
 from .metrics import get_metric
 from .plan import TilePlan, build_plan
-from .scoring import _segments, score_huge_sources_host_multi, score_tiles
+from .scoring import pass_bytes, score_huge_sources_host_multi, score_tiles
 
 __all__ = ["PredictOptions", "PredictResult", "predict_links",
            "predict_links_multi", "top_per_source", "PlanCache",
            "device_bytes"]
 
 _DEFAULT_MAX_EDGES = 1 << 20
-
-# Device bytes a lane that one tile allocates while it runs, beyond the
-# stream already resident: the int64 key and its sort (keys, permutation,
-# the sort's own buffers), the payload gathers, K1's keys, ku, kw and
-# scratch, and the edge tile's slot map and gathers.  chip_smoke.py
-# measures it (max_memory_allocated around one tile, less what was
-# allocated before it, over cap) and fails above this figure.  On an
-# NVIDIA H100 80GB HBM3 at a 700.00 W power limit (torch 2.11.0+cu128):
-# packed cap 2^21 57.231 B (Jaccard) and 81.031 (all nine metrics),
-# packed cap 2^23 57.250, the IHub edge tile at cap 2^21 with killers
-# 64.231 and 88.031; this is the largest, rounded up.
-TILE_BYTES_PER_LANE = 89
 
 # Device bytes a row that one metric's merge of the passes' winners
 # allocates while it runs (:func:`_merge_winners`): the concatenated score,
@@ -168,56 +156,40 @@ def device_bytes(g: CSRGraph, passes, num_metrics: int, k: int,
                  weighted: bool, device, mesh=None,
                  csr_resident: bool = False) -> dict:
     """What scoring ``passes`` will allocate on ``device`` beyond what is
-    already there, in bytes, by item:
-
-    * ``stream``: each pass's stream not yet uploaded (under a ``mesh``,
-      this rank's block at its padded width);
-    * ``middeg``: the deg(mid) arrays, when a weighted metric is asked for;
-    * ``csr``: ``indices`` and ``degrees`` for an edge plan, unless
-      ``csr_resident``;
-    * ``selection``: the largest selection buffer of one pass, ``lanes x
-      (4 M + 8)`` B for one segment of ``scoring._segments``;
-    * ``tile``: what one tile allocates while it runs, the largest ``cap``
-      of the passes with tiles (this rank's, under a ``mesh``) x
-      ``TILE_BYTES_PER_LANE``;
-    * ``gather``: under a mesh of several ranks, the gathered ``[D, M, k]``
-      buffers and their stack;
-    * ``merge``: the merge of the winners (:func:`_merge_winners`): one
-      metric's rows, ``k`` a pass with tiles plus at most ``min(k, n)`` a
-      host-scored hub, x ``MERGE_BYTES_PER_ROW``, and every metric's
-      merged rows, 12 B a row, twice (their compaction);
-
-    and ``total``."""
-    from ..parallel.mesh import pending_bytes
+    already there, in bytes, by item, each priced where it is allocated:
+    ``stream`` and ``middeg`` (``TilePlan.upload_bytes``; under a ``mesh``,
+    ``mesh.pending_bytes``), ``selection`` and ``tile``
+    (``scoring.pass_bytes``, the largest pass's), ``gather``
+    (``mesh.gather_bytes``), ``csr`` (:func:`_upload_csr`, unless
+    ``csr_resident``), ``merge`` (:func:`_merge_winners`); and ``total``."""
+    from ..parallel.mesh import gather_bytes, pending_bytes
 
     need = dict(stream=0, middeg=0, csr=0, selection=0, tile=0, gather=0,
                 merge=0)
     rows = sum(p.host_src.size for p in passes) * min(k, g.n)
     for p in passes:
         if mesh is None:
-            memo = p._device.get(str(device), {})
-            *arrays, middeg = p.host_stream(weighted)
-            if "stream" not in memo:
-                need["stream"] += sum(a.nbytes for a in arrays)
-            if middeg is not None and "middeg" not in memo:
-                need["middeg"] += middeg.nbytes
+            stream, middeg = p.upload_bytes(device, weighted)
             tiles = p.num_tiles_padded
         else:
             stream, middeg, tiles = pending_bytes(p, mesh, weighted)
-            need["stream"] += stream
-            need["middeg"] += middeg
-        if tiles:
-            _, seg = _segments(tiles, p.cap, num_metrics, device)
-            need["selection"] = max(need["selection"],
-                                    seg * p.cap * (4 * num_metrics + 8))
-            need["tile"] = max(need["tile"], p.cap * TILE_BYTES_PER_LANE)
-        if p.num_tiles_padded:
+        selection, tile = pass_bytes(tiles, p.cap, num_metrics, device)
+        need["stream"] += stream
+        need["middeg"] += middeg
+        need["selection"] = max(need["selection"], selection)
+        need["tile"] = max(need["tile"], tile)
+        # a pass hands the merge k rows, and under a mesh of D > 1 ranks
+        # D x k: every rank joins the gather, tiles or not
+        if mesh is not None and mesh.size > 1:
+            rows += mesh.size * k
+        elif p.num_tiles_padded:
             rows += k
     if not csr_resident and not all(p.packed for p in passes):
         h = g.host()
         need["csr"] = h.indices.nbytes + h.degrees.nbytes
-    if mesh is not None and mesh.size > 1:
-        need["gather"] = 2 * mesh.size * 3 * num_metrics * k * 4
+    if mesh is not None:
+        need["gather"] = gather_bytes(mesh, num_metrics, k)
+    # one metric's rows at a time, and every metric's merged rows twice
     need["merge"] = (rows * MERGE_BYTES_PER_ROW
                      + 2 * num_metrics * min(k, rows) * 12)
     need["total"] = sum(need.values())
@@ -237,10 +209,11 @@ def _check_device_memory(need: dict, device) -> None:
 
 def _merge_winners(tops, host_rows: dict, names, max_edges: int, device):
     """Merge each metric's winners on ``device``: the passes' rows in
-    scoring order, then the host scorer's, the non-finite scores dropped
-    and the best ``max_edges`` kept, best first, the earlier row first
-    among equal scores (``np.argsort(-scores, kind="stable")`` over the
-    concatenation, which ties -0.0 with +0.0).  Returns ``(rows, lengths)``:
+    scoring order (a sharded pass's ranks side by side: the ranks meet
+    here), then the host scorer's, the non-finite scores dropped and the
+    best ``max_edges`` kept, best first, the earlier row first among equal
+    scores (``np.argsort(-scores, kind="stable")`` over the concatenation,
+    which ties -0.0 with +0.0).  Returns ``(rows, lengths)``:
     every metric's kept rows stacked as int32 ``[3, sum(lengths)]`` (score
     bits, u, v) in ``names`` order, and each metric's count, read with one
     host sync."""
@@ -314,8 +287,8 @@ def predict_links_multi(
 
     ``mesh``: a ``parallel.mesh.Mesh``; the main plan and every sub-plan
     take the sharded pass (each rank uploads only its block and scans its
-    tiles, one all-gather merges), scoring runs on ``mesh.device`` in
-    place of ``device``, and every rank returns the same result.
+    tiles, one all-gather feeds the merge), scoring runs on ``mesh.device``
+    in place of ``device``, and every rank returns the same result.
     ``key64=False`` is not ported and raises.  A pass whose device bytes
     (:func:`device_bytes`) exceed the free memory raises ``MemoryError``
     before anything is uploaded.
@@ -324,8 +297,9 @@ def predict_links_multi(
     builds the plan), ``api.memcheck``, ``api.upload``, ``api.host_hubs``,
     ``api.warmup``, ``api.score``, ``api.copy_back`` and ``api.merge``
     (``utils/profiling.py``); the counter ``api.merge_rows`` adds the rows
-    that enter the merge, over metrics, and ``api.rows_back`` the rows
-    copied back, at most ``max_edges`` a metric."""
+    that enter the merge, over metrics (every rank's under a mesh), and
+    ``api.rows_back`` the rows copied back, at most ``max_edges`` a
+    metric."""
     with span("api.call"):
         return _predict_links_multi(
             g, metrics, min_degree1, max_factor2, options, cap, plan,

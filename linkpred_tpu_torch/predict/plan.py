@@ -225,6 +225,14 @@ class TilePlan:
             d["middeg"] = torch.as_tensor(middeg, device=device)
         return (*d["stream"], d.get("middeg") if weighted else None)
 
+    def upload_bytes(self, device, weighted: bool = False):
+        """``(stream, middeg)``: the bytes :meth:`device_stream` still has
+        to upload to ``device``, deg(mid) only when ``weighted``."""
+        d = self._device.get(str(torch.device(device)), {})
+        *arrays, middeg = self.host_stream(weighted)
+        return (0 if "stream" in d else sum(a.nbytes for a in arrays),
+                0 if middeg is None or "middeg" in d else middeg.nbytes)
+
     def host_stream(self, weighted: bool = False):
         """The host arrays :meth:`device_stream` uploads, in its order:
         deg(mid) last, None unless ``weighted``."""

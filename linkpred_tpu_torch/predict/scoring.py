@@ -57,7 +57,8 @@ from .plan import KILL
 
 __all__ = ["score_tiles", "scan_tiles", "tile_scorer", "tile_candidates",
            "tile_candidates_packed", "edge_keys", "keyed_sort", "pack_pair",
-           "score_huge_sources_host_multi", "score_huge_sources_host"]
+           "pass_bytes", "score_huge_sources_host_multi",
+           "score_huge_sources_host"]
 
 # Key of dead lanes in the sentinel two-key branch: sorts after every id.
 _SENTINEL = (1 << 31) - 1
@@ -70,6 +71,18 @@ SEG_LANES = None
 # Smallest selection buffer that takes the survivor pack (the reference's
 # value); tests patch it to reach the pack at small sizes.
 SEL_PACK_MIN = 1 << 22
+
+# Device bytes a lane that one tile allocates while it runs, beyond the
+# stream already resident: the int64 key and its sort (keys, permutation,
+# the sort's own buffers), the payload gathers, K1's keys, ku, kw and
+# scratch, and the edge tile's slot map and gathers.  chip_smoke.py
+# measures it (max_memory_allocated around one tile, less what was
+# allocated before it, over cap) and fails above this figure.  On an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit (torch 2.11.0+cu128):
+# packed cap 2^21 57.231 B (Jaccard) and 81.031 (all nine metrics),
+# packed cap 2^23 57.250, the IHub edge tile at cap 2^21 with killers
+# 64.231 and 88.031; this is the largest, rounded up.
+TILE_BYTES_PER_LANE = 89
 
 
 def _seg_lanes(device) -> int:
@@ -358,16 +371,32 @@ def _merge_stacked(stacked: TopK, k: int) -> TopK:
     return TopK(*(torch.cat(parts) for parts in zip(*outs)))
 
 
+def _lane_bytes(num_metrics: int) -> int:
+    """Bytes a lane of the selection buffer: a key a metric, u and v."""
+    return 4 * num_metrics + 8
+
+
 def _segments(t_pad: int, cap: int, num_metrics: int, device):
     """``(n_seg, seg)``: how many segments of ``seg`` tiles the selection
     of a ``t_pad``-tile pass runs over; ``(1, t_pad)`` when its buffer fits
     the segment bound.  Segments are balanced."""
-    seg_lanes = max(cap, _seg_lanes(device) * 12 // (4 * num_metrics + 8))
+    seg_lanes = max(cap, _seg_lanes(device) * _lane_bytes(1)
+                    // _lane_bytes(num_metrics))
     seg = max(1, seg_lanes // cap)
     if t_pad <= seg:
         return 1, t_pad
     n_seg = -(-t_pad // seg)
     return n_seg, -(-t_pad // n_seg)
+
+
+def pass_bytes(tiles: int, cap: int, num_metrics: int, device):
+    """``(selection, tile)``: the device bytes of one segment's selection
+    buffer (:func:`_segments`) and of one tile's temporaries, for a pass of
+    ``tiles`` tiles of ``cap`` lanes; ``(0, 0)`` without tiles."""
+    if not tiles:
+        return 0, 0
+    _, seg = _segments(tiles, cap, num_metrics, device)
+    return seg * cap * _lane_bytes(num_metrics), cap * TILE_BYTES_PER_LANE
 
 
 def _fill_buffer(tile_fn, tile_start, tiles, num_metrics: int, cap: int,

@@ -23,6 +23,7 @@ from conftest import random_graph
 import linkpred_tpu_torch as lt
 from linkpred_tpu_torch import convert
 from linkpred_tpu_torch.ops.topk import TopK
+from linkpred_tpu_torch.parallel import mesh as pmesh
 from linkpred_tpu_torch.predict import api, plan, scoring
 from linkpred_tpu_torch.predict.metrics import METRICS
 from linkpred_tpu_torch.utils import profiling
@@ -292,9 +293,10 @@ def test_results_do_not_share_memory_across_calls(rng):
 # ----------------------------------------------- the merge's device bytes
 
 def test_device_bytes_prices_the_merge(rng, monkeypatch):
-    """The ``merge`` item: ``k`` rows a pass with tiles (and ``min(k, n)``
-    a host-scored hub) x ``MERGE_BYTES_PER_ROW``, and every metric's
-    merged rows twice."""
+    """The ``merge`` item: ``k`` rows a pass with tiles, ``D x k`` a pass
+    under a mesh of ``D > 1`` ranks (and ``min(k, n)`` a host-scored hub)
+    x ``MERGE_BYTES_PER_ROW``, and every metric's merged rows twice; the
+    ``gather`` item is the mesh's ``gather_bytes``."""
     gp = _port(random_graph(rng, 200, 6))
     for kw in (dict(), dict(slot_budget=0)):
         p = plan.build_plan(gp, 0, 256, device="cpu", **kw)
@@ -306,6 +308,18 @@ def test_device_bytes_prices_the_merge(rng, monkeypatch):
                                  + 2 * 3 * min(k, rows) * 12) > 0
         assert need["total"] == sum(v for n, v in need.items()
                                     if n != "total")
+    # under a mesh of D > 1 ranks every rank joins the gather with k rows,
+    # tiles or not: D x k a pass
+    for d in (2, 4):
+        for r in range(d):
+            mesh = pmesh.Mesh(group=None, device=torch.device("cpu"),
+                              rank=r, size=d)
+            need = api.device_bytes(gp, passes, 3, k, False, "cpu", mesh)
+            rows = len(passes) * d * k
+            assert need["merge"] == (rows * api.MERGE_BYTES_PER_ROW
+                                     + 2 * 3 * min(k, rows) * 12)
+            assert need["gather"] == pmesh.gather_bytes(mesh, 3, k) == \
+                2 * d * 3 * 3 * k * 4
     monkeypatch.setattr(plan, "HUGE_DEVICE_MAX", 1)
     p = plan.build_plan(gp, 0, 32, device="cpu")
     assert p.host_src.size, "test premise"

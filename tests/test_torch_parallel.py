@@ -469,7 +469,7 @@ def test_memory_check_prices_what_the_pass_uploads(rng):
     stream = sum(a.nbytes for q in passes for a in q.host_stream(True)[:-1])
     middeg = sum(q.host_stream(True)[-1].nbytes for q in passes)
     seg = max(q.num_tiles_padded * q.cap * (4 * 2 + 8) for q in passes)
-    tile = max(q.cap for q in passes) * api.TILE_BYTES_PER_LANE
+    tile = max(q.cap for q in passes) * scoring.TILE_BYTES_PER_LANE
     rows = len(passes) * k
     merge = rows * api.MERGE_BYTES_PER_ROW + 2 * 2 * min(k, rows) * 12
     assert need == dict(stream=stream, middeg=middeg, csr=0, selection=seg,
@@ -485,6 +485,49 @@ def test_memory_check_prices_what_the_pass_uploads(rng):
     h = gp.host()
     assert api.device_bytes(gp, [e], 1, k, False, "cpu")["csr"] == \
         h.indices.nbytes + h.degrees.nbytes
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(slot_budget=0)],
+                         ids=["packed", "edge"])
+def test_plan_prices_what_it_still_uploads(rng, kw):
+    """``TilePlan.upload_bytes``: the whole stream before ``device_stream``
+    and nothing after it, deg(mid) only when weighted, for each device
+    apart."""
+    gp = _port_graph(random_graph(rng, 200, 6))
+    p = plan.build_plan(gp, 0, 512, device="cpu", **kw)
+    *arrays, middeg = p.host_stream(True)
+    stream = sum(a.nbytes for a in arrays)
+    assert p.upload_bytes("cpu") == (stream, 0)
+    assert p.upload_bytes("cpu", True) == (stream, middeg.nbytes)
+    p.device_stream("cpu")
+    assert p.upload_bytes("cpu", True) == (0, middeg.nbytes)
+    p.device_stream("cpu", weighted=True)
+    assert p.upload_bytes("cpu", True) == p.upload_bytes("cpu") == (0, 0)
+    assert p.upload_bytes("cuda", True) == (stream, middeg.nbytes)
+
+
+@pytest.mark.parametrize("case", ["packed", "edge", "segmented"])
+def test_scorer_prices_a_pass(rng, monkeypatch, case):
+    """``scoring.pass_bytes``: one segment's selection buffer, ``seg x cap
+    x (4 M + 8)`` B, and one tile at ``TILE_BYTES_PER_LANE`` a lane, the
+    ``selection`` and ``tile`` that ``device_bytes`` reports; ``(0, 0)``
+    without tiles."""
+    if case == "segmented":
+        monkeypatch.setattr(scoring, "SEG_LANES", 4096)
+    gp = _port_graph(random_graph(rng, 300, 6))
+    p = plan.build_plan(gp, 0, 256, slot_budget=0 if case == "edge" else None,
+                        device="cpu")
+    assert p.packed == (case != "edge") and not api._sub_plans(p)
+    for m in (1, 3, 9):
+        n_seg, seg = scoring._segments(p.num_tiles_padded, p.cap, m, "cpu")
+        assert (n_seg > 1) == (case == "segmented"), "test premise"
+        want = (seg * p.cap * (4 * m + 8),
+                p.cap * scoring.TILE_BYTES_PER_LANE)
+        assert scoring.pass_bytes(p.num_tiles_padded, p.cap, m, "cpu") == \
+            want
+        need = api.device_bytes(gp, [p], m, 1024, m > 1, "cpu")
+        assert (need["selection"], need["tile"]) == want
+    assert scoring.pass_bytes(0, p.cap, 1, "cpu") == (0, 0)
 
 
 def test_memory_check_prices_only_this_ranks_block(rng):
@@ -503,7 +546,7 @@ def test_memory_check_prices_only_this_ranks_block(rng):
             _, seg = scoring_segments(lay.tiles(r), p.cap)
             assert need["selection"] == seg * p.cap * 12
         # each rank runs its own tiles, so each prices one
-        assert need["tile"] == (p.cap * api.TILE_BYTES_PER_LANE
+        assert need["tile"] == (p.cap * scoring.TILE_BYTES_PER_LANE
                                 if lay.tiles(r) else 0)
 
 
@@ -519,7 +562,7 @@ def test_memory_check_prices_a_tile_by_its_cap(rng):
         need = api.device_bytes(gp, [p, *api._sub_plans(p)], 1, 1024, False,
                                 "cpu")
         got[cap] = need["tile"]
-        assert need["tile"] == cap * api.TILE_BYTES_PER_LANE > 0
+        assert need["tile"] == cap * scoring.TILE_BYTES_PER_LANE > 0
         assert need["total"] == sum(v for n, v in need.items()
                                     if n != "total")
     assert got[2048] == 2 * got[1024]
@@ -534,7 +577,7 @@ def test_memory_check_prices_a_tile_under_a_two_rank_mesh(rng):
         mesh = pmesh.Mesh(group=None, device=torch.device("cpu"), rank=r,
                           size=2)
         need = api.device_bytes(gp, [p], 1, 1024, False, "cpu", mesh)
-        assert need["tile"] == 1024 * api.TILE_BYTES_PER_LANE
+        assert need["tile"] == 1024 * scoring.TILE_BYTES_PER_LANE
 
 
 def test_memory_error_names_the_tile(rng, monkeypatch):
