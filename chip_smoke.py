@@ -1382,7 +1382,10 @@ def phase_ihub(device, scale: int = 18):
     launches = kernel_launches()
     killer_launches = counter("k1.killer_launches")
     seg_runs = counter("scan.segments")
-    n_passes = 3 * 2          # each call: one warm-up pass, one timed pass
+    skips = counter("api.warmup_skips")
+    # the first call: one warm-up pass and one timed pass; the calls on
+    # the same plan after it skip the warm-up and run the timed pass alone
+    n_passes = 1 + 3
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
 
     recall = recall_of(res, removed)
@@ -1399,6 +1402,8 @@ def phase_ihub(device, scale: int = 18):
           "IHub: k finite predictions")
     check(np.all(np.diff(res.score) <= 0), "IHub: scores descending")
     check(killer_launches > 0, "IHub: K1 never ran its killer branch")
+    check(skips == 2, f"IHub: {skips} of the 2 repeat calls on the plan "
+          "skipped the warm-up")
     # one K1 launch per non-empty tile of the edge stream and the hub
     # sub-plan, in every pass
     tiles = [int(np.count_nonzero(np.diff(p.tile_start) > 0))

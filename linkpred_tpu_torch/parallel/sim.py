@@ -18,7 +18,9 @@ its device and fails on any difference (the same score multiset, the same
 pairs above the k-th score).  Each rank prints one ``SIM {json}`` line per
 case: its stream bytes beside the padded total, the priced device bytes
 beside the free memory, its K1 and K2 launches, the pass and gather
-times.  Rank 0 writes its results to ``--out``.
+times, and the warm-ups that a second call on the same plan skipped (it
+fails unless that call's results equal the first call's bit for bit).
+Rank 0 writes its results to ``--out``.
 
 ``--spec`` is a JSON list of cases, each ``{"name", "graph" (an .npz
 path; default: a 300-vertex random graph), "metrics", "min_degree1",
@@ -100,6 +102,7 @@ def run_case(case: dict, mesh) -> tuple:
     from ..predict.metrics import get_metric
     from ..predict.plan import build_plan
     from ..utils.device import free_bytes
+    from ..utils.profiling import counter
     from .mesh import gather_topk
 
     case = {**TOY_CASE, **case}
@@ -128,6 +131,17 @@ def run_case(case: dict, mesh) -> tuple:
     res = predict_links_multi(g, names, plan=plan, options=opts, mesh=mesh,
                               sources=sources)
     k1, k2 = _launches()[0] - k1, _launches()[1] - k2
+    # a second call on the same plan skips the warm-up on every rank and
+    # gives the first call's answer bit for bit
+    skips = counter("api.warmup_skips")
+    again = predict_links_multi(g, names, plan=plan, options=opts,
+                                mesh=mesh, sources=sources)
+    skips = counter("api.warmup_skips") - skips
+    for m in names:
+        if not all(np.array_equal(getattr(again[m], f), getattr(res[m], f))
+                   for f in ("u", "v", "score")):
+            raise AssertionError(f"{case['name']}/{m}: a second call on "
+                                 "the same plan differs from the first")
 
     # the pass's collective alone, on a [M, k] buffer of this pass's size
     buf = TopK(*(torch.zeros((len(names), k), dtype=dt, device=mesh.device)
@@ -153,7 +167,8 @@ def run_case(case: dict, mesh) -> tuple:
         passes=len(passes), k=k, stream_bytes=priced["stream"]
         + priced["middeg"], padded_total_bytes=padded_total,
         cap_tail_bytes=cap_tail, priced_bytes=priced["total"],
-        free_bytes=free, k1_launches=k1, k2_launches=k2, plan_ms=plan_ms,
+        free_bytes=free, k1_launches=k1, k2_launches=k2,
+        warmup_skips=skips, plan_ms=plan_ms,
         pass_ms=res[names[0]].scoring_ms * len(names), gather_ms=gather_ms,
         results=len(res[names[0]]))
     return record, res

@@ -293,13 +293,20 @@ def predict_links_multi(
     (:func:`device_bytes`) exceed the free memory raises ``MemoryError``
     before anything is uploaded.
 
+    The pass runs once untimed before the timed pass only on the plan's
+    first scoring on ``device`` with these metrics, this ``k``,
+    ``min_score`` and ``max_factor2`` and (under a mesh) this mesh size; a
+    later call with the same plan and shape goes straight to the timed
+    pass.
+
     The call is the span ``api.call``; inside it ``plan.build`` (where it
     builds the plan), ``api.memcheck``, ``api.upload``, ``api.host_hubs``,
-    ``api.warmup``, ``api.score``, ``api.copy_back`` and ``api.merge``
-    (``utils/profiling.py``); the counter ``api.merge_rows`` adds the rows
-    that enter the merge, over metrics (every rank's under a mesh), and
-    ``api.rows_back`` the rows copied back, at most ``max_edges`` a
-    metric."""
+    ``api.warmup`` (on a first scoring), ``api.score``, ``api.copy_back``
+    and ``api.merge`` (``utils/profiling.py``); the counter
+    ``api.merge_rows`` adds the rows that enter the merge, over metrics
+    (every rank's under a mesh), ``api.rows_back`` the rows copied back,
+    at most ``max_edges`` a metric, and ``api.warmup_skips`` the calls
+    that skipped the warm-up."""
     with span("api.call"):
         return _predict_links_multi(
             g, metrics, min_degree1, max_factor2, options, cap, plan,
@@ -384,7 +391,23 @@ def _predict_links_multi(g, metrics, min_degree1, max_factor2, options, cap,
                 o.min_score, k=max_edges, upper_only=plan.upper_only)
         host_ms = (time.perf_counter() - t0) * 1e3
 
-    ts, tops = measure_duration(run_scoring, o.repeat, device=device)
+    # The untimed warm-up keeps a plan's first-use costs (the kernels'
+    # build and load, the allocator's first growth for these shapes) out
+    # of the clock, so only a plan's first scoring of a shape warms up.
+    # The names also fix whether a weighted input is read; min_score and
+    # max_factor2 fix how many lanes survive into the selection, whose
+    # buffers follow that count.  The allocator keeps what it grew until
+    # ``torch.cuda.empty_cache()``: a repeat scoring after one may grow it
+    # again inside ``time_ms``.  Every rank of a mesh makes the same calls
+    # on the same plan and so the same decision.
+    shape = (names, k, o.min_score, max_factor2,
+             None if mesh is None else mesh.size)
+    first = plan.first_scoring(device, shape)
+    if not first:
+        count("api.warmup_skips")
+    ts, tops = measure_duration(run_scoring, o.repeat, warmup=first,
+                                device=device)
+    plan.note_scored(device, shape)
     ts += host_ms
 
     t0 = time.perf_counter()

@@ -8,7 +8,10 @@ for field — ``tests/test_torch_plan.py`` pins that.  What differs:
   the caller names the CPU);
 * ``TilePlan.device_stream(device, weighted)`` uploads torch tensors, once
   per plan and device (the slot stream, or the edge stream's ``fe_*`` rows),
-  and uploads the deg(mid) array only when a weighted metric asks for it.
+  and uploads the deg(mid) array only when a weighted metric asks for it;
+* ``TilePlan.first_scoring`` / ``note_scored`` remember, per plan object and
+  device, the shapes it was scored under (the API warms up a plan only on
+  its first scoring of a shape).
 
 The plan: filter first-hop edges (u → mid) by the LHub mask
 ``deg(mid) <= min_degree1``; expand each into deg(mid) candidate slots,
@@ -199,6 +202,10 @@ class TilePlan:
     # Uploaded device copies, per device (not part of equality).
     _device: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
+    # The (device, scoring shape) pairs this plan object was scored under:
+    # not part of equality, and not carried over by dataclasses.replace.
+    _scored: set = dataclasses.field(default_factory=set, init=False,
+                                     repr=False, compare=False)
 
     @property
     def num_tiles_padded(self) -> int:
@@ -232,6 +239,16 @@ class TilePlan:
         *arrays, middeg = self.host_stream(weighted)
         return (0 if "stream" in d else sum(a.nbytes for a in arrays),
                 0 if middeg is None or "middeg" in d else middeg.nbytes)
+
+    def first_scoring(self, device, shape) -> bool:
+        """Whether this plan has not yet been scored on ``device`` under
+        ``shape`` (the caller's key of what a scoring allocates), as noted
+        by :meth:`note_scored`."""
+        return (str(torch.device(device)), shape) not in self._scored
+
+    def note_scored(self, device, shape) -> None:
+        """Note that this plan was scored on ``device`` under ``shape``."""
+        self._scored.add((str(torch.device(device)), shape))
 
     def host_stream(self, weighted: bool = False):
         """The host arrays :meth:`device_stream` uploads, in its order:

@@ -31,7 +31,9 @@ The reference's observability is wall-clock only.  The port adds:
   scored), ``api.merge_rows`` (rows of the passes' winners and the
   host-scored hubs' that enter the device merge, over metrics),
   ``api.rows_back`` (merged rows copied back to the host, at most
-  ``max_edges`` a metric, over metrics),
+  ``max_edges`` a metric, over metrics), ``api.warmup_skips`` (calls
+  that skipped the untimed warm-up pass: a plan already scored with the
+  same shape),
   ``plan.firsthop_rows`` (CSR rows a plan's first hop read for a source
   set) and ``plan.firsthop_scans`` (plans whose first hop scanned every
   edge).

@@ -960,3 +960,31 @@ def test_results_on_the_card_do_not_share_memory_across_calls(rng, cuda):
                 for b in (later[name].u, later[name].v, later[name].score):
                     assert not np.shares_memory(a, b)
         del later
+
+
+@pytest.mark.parametrize("metrics", [("jaccard_coefficient",),
+                                     tuple(lt.METRICS)], ids=["one", "nine"])
+def test_a_second_call_on_the_same_plan_skips_the_warm_up(cuda, metrics):
+    """On the card a second call on the same plan skips the untimed
+    warm-up pass (one count of ``api.warmup_skips``, half the first call's
+    K1 launches) and gives the first call's rows bit for bit."""
+    from linkpred_tpu_torch.bench.synth import rmat_graph
+
+    g = rmat_graph(12, seed=5)
+    p = build_plan(g, 0, 1 << 12, device=cuda)
+    call = lambda: lt.predict_links_multi(  # noqa: E731
+        g, metrics, min_degree1=0, plan=p, device=cuda,
+        options=lt.PredictOptions(max_edges=5000))
+    skips, launches = counter("api.warmup_skips"), counter("k1.launches")
+    first = call()
+    assert counter("api.warmup_skips") == skips
+    once = (counter("k1.launches") - launches) // 2
+    skips, launches = counter("api.warmup_skips"), counter("k1.launches")
+    again = call()
+    assert counter("api.warmup_skips") == skips + 1
+    assert counter("k1.launches") - launches == once > 0
+    for name in first:
+        assert len(first[name]) > 0
+        for f in ("u", "v", "score"):
+            np.testing.assert_array_equal(getattr(again[name], f),
+                                          getattr(first[name], f))

@@ -13,7 +13,9 @@ dense oracle; and the port's own device-memory check (C3).
   (rank processes meeting through a ``file://`` store): rank 0's results
   equal the port's single-process pass exactly up to ties at the k-th
   score, agree with ``linkpred_tpu.predict_links_multi(mesh=make_mesh(8))``
-  within rtol 1e-5, and with the dense oracle within rtol 1e-5.
+  within rtol 1e-5, and with the dense oracle within rtol 1e-5; a second
+  call on the same plan skips the warm-up on every rank and repeats the
+  first call's results bit for bit.
 """
 import dataclasses
 import json
@@ -404,6 +406,20 @@ def test_sim_ranks_print_their_blocks(sim_runs, world):
     for r in records:
         by_case.setdefault(r["case"], set()).add(r["results"])
     assert all(len(v) == 1 for v in by_case.values()), by_case
+
+
+@pytest.mark.parametrize("world", [2, 8])
+def test_sim_ranks_skip_the_warm_up_on_a_second_call(sim_runs, world):
+    """Every rank makes a second call on the same plan under the mesh:
+    each skips the untimed warm-up pass once, with no collective to agree
+    on it, none hangs (the launcher's deadline), and each gets the first
+    call's results bit for bit (the sim fails otherwise; rank 0 holds the
+    first call against the single-process pass)."""
+    _, runs = sim_runs
+    _, records = runs[world]
+    assert len(records) == world * len(CASES)
+    for r in records:
+        assert r["warmup_skips"] == 1, r
 
 
 def test_sim_dryrun(tmp_path):
