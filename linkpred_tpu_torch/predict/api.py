@@ -123,15 +123,21 @@ class PlanCache:
         self._cache.clear()
 
 
+def _named_passes(p: TilePlan, name: str = "scan.pass"):
+    """``p`` and its sub-plan passes in scoring order, each with the span
+    of its scoring: ``scan.side`` for a wide-degree side stream,
+    ``scan.pass`` for the others."""
+    out = [(p, name)]
+    for q, q_name in ((p.side_plan, "scan.side"), (p.huge_plan, "scan.pass")):
+        if q is not None:
+            out.extend(_named_passes(q, q_name))
+    return out
+
+
 def _sub_plans(p: TilePlan):
     """Sub-plan passes in scoring order: the side stream and the hub
     sub-plan (which may carry its own side stream)."""
-    out = []
-    for q in (p.side_plan, p.huge_plan):
-        if q is not None:
-            out.append(q)
-            out.extend(_sub_plans(q))
-    return out
+    return [q for q, _ in _named_passes(p)[1:]]
 
 
 def _exact_k(plan: TilePlan, max_edges: int) -> int:
@@ -302,11 +308,12 @@ def predict_links_multi(
     The call is the span ``api.call``; inside it ``plan.build`` (where it
     builds the plan), ``api.memcheck``, ``api.upload``, ``api.host_hubs``,
     ``api.warmup`` (on a first scoring), ``api.score``, ``api.copy_back``
-    and ``api.merge`` (``utils/profiling.py``); the counter
-    ``api.merge_rows`` adds the rows that enter the merge, over metrics
-    (every rank's under a mesh), ``api.rows_back`` the rows copied back,
-    at most ``max_edges`` a metric, and ``api.warmup_skips`` the calls
-    that skipped the warm-up."""
+    and ``api.merge`` (``utils/profiling.py``), each pass's scoring in them
+    the span ``scan.pass``, or ``scan.side`` for a wide-degree side plan;
+    the counter ``api.merge_rows`` adds the rows that enter the merge, over
+    metrics (every rank's under a mesh), ``api.rows_back`` the rows copied
+    back, at most ``max_edges`` a metric, and ``api.warmup_skips`` the
+    calls that skipped the warm-up."""
     with span("api.call"):
         return _predict_links_multi(
             g, metrics, min_degree1, max_factor2, options, cap, plan,
@@ -344,7 +351,7 @@ def _predict_links_multi(g, metrics, min_degree1, max_factor2, options, cap,
         else:
             plan = build_plan(g, min_degree1, cap, sources=sources,
                               device=device)
-    passes = [plan, *_sub_plans(plan)]
+    passes, span_names = zip(*_named_passes(plan))
     k = _exact_k(plan, max_edges)
     weighted = any(s.needs_weight for s in specs)
     with span("api.memcheck"):
@@ -368,9 +375,11 @@ def _predict_links_multi(g, metrics, min_degree1, max_factor2, options, cap,
 
     def run_scoring():
         out = []
-        for p, (stream, tile_start) in zip(passes, streams):
+        for p, name, (stream, tile_start) in zip(passes, span_names,
+                                                 streams):
             kw = dict(metric_names=names, k=k, n=g.n, maxf2=max_factor2,
-                      indices=indices, degrees=degrees, **_pass_kwargs(p))
+                      indices=indices, degrees=degrees, span_name=name,
+                      **_pass_kwargs(p))
             out.append(
                 score_tiles(stream, tile_start, o.min_score, device=device,
                             **kw) if mesh is None else

@@ -23,6 +23,8 @@ slots whose degree pair does not fit 16 bits to a side plan.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -67,10 +69,12 @@ def _huge_device_max(device) -> int:
     return auto_seg_lanes(device) // 2
 
 
-def _native_expand(g, src, mid, skip, est: int, deg16: bool):
+def _native_expand(g, src, mid, skip, est: int, deg16: bool, rows=None):
     """Fused C++ slot expansion + dead-slot removal; returns
     ``(kept, sw, su, sudeg, swdeg, smid, cnt_u)`` or None when the native
-    library is unavailable (the NumPy pipeline then runs)."""
+    library is unavailable (the NumPy pipeline then runs).  ``cnt_u``
+    counts every vertex's slots, or only those of ``rows`` (a source set's
+    ascending rows) where given."""
     from ..io.native import native_lib
 
     lib = native_lib()
@@ -87,14 +91,28 @@ def _native_expand(g, src, mid, skip, est: int, deg16: bool):
     sudeg = np.empty(est, dtype=np.int32)
     swdeg = np.empty(1 if deg16 else est, dtype=np.int32)
     smid = np.empty(est, dtype=np.int32)
-    cnt_u = np.empty(n, dtype=np.int64)
+    cnt_u = np.empty(n, dtype=np.int64) if rows is None else _count_buffer(n)
     kept = int(lib.lp_plan_expand(
         offs, inds, n, rsrc, rmid, rskip, rsrc.shape[0],
         1, 1 if deg16 else 0, est, sw, su, sudeg, swdeg, smid, cnt_u))
     if kept < 0:  # cannot happen (est is an upper bound)
         return None
     return (kept, sw[:kept], su[:kept], sudeg[:kept],
-            None if deg16 else swdeg[:kept], smid[:kept], cnt_u)
+            None if deg16 else swdeg[:kept], smid[:kept],
+            cnt_u if rows is None else cnt_u[rows])
+
+
+_COUNTS = threading.local()
+
+
+def _count_buffer(n: int) -> np.ndarray:
+    """The expansion's count of every vertex, for a source set's build,
+    which keeps only its own rows of it: one buffer a thread, reused from
+    request to request, in place of a fresh array of the graph's size."""
+    buf = getattr(_COUNTS, "buf", None)
+    if buf is None or buf.shape[0] < n:
+        buf = _COUNTS.buf = np.empty(n, dtype=np.int64)
+    return buf[:n]
 
 
 def _native_firsthop(g, min_degree1: int, upper_only: bool):
@@ -124,6 +142,29 @@ def _native_firsthop(g, min_degree1: int, upper_only: bool):
     return (src[:m1].astype(np.int64), mid[:m1].astype(np.int64),
             skip[:m1].astype(np.int64), kuniq[:k].astype(np.int64),
             kskip[:k].astype(np.int64))
+
+
+_ROWS64: dict = {}
+
+
+def _int64_rows(g: CSRGraph):
+    """``(deg, offsets64, max_deg)``: ``g``'s degrees and row starts as
+    read-only int64 arrays, and its largest degree, made once per graph.
+    A served request's plan reads a few rows of them, yet copying them
+    took most of its host time at two million vertices.  The memo holds
+    the arrays of the graph whose leaves are alive (``CSRGraph`` is
+    immutable), and drops them when its degree array goes."""
+    key = id(g.degrees)
+    hit = _ROWS64.get(key)
+    if hit is not None and hit[0]() is g.degrees and hit[1]() is g.offsets:
+        return hit[2:]
+    deg = np.array(g.degrees, dtype=np.int64)
+    offsets64 = np.array(g.offsets, dtype=np.int64)
+    deg.flags.writeable = offsets64.flags.writeable = False
+    _ROWS64[key] = entry = (
+        weakref.ref(g.degrees, lambda _, k=key: _ROWS64.pop(k, None)),
+        weakref.ref(g.offsets), deg, offsets64, int(deg.max(initial=0)))
+    return entry[2:]
 
 
 def _source_rows(n: int, sources, keep_src) -> Optional[np.ndarray]:
@@ -302,8 +343,7 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
         slot_budget = _slot_budget(device)
     g = g.host()
     n = g.n
-    deg = np.asarray(g.degrees, dtype=np.int64)
-    offsets64 = np.asarray(g.offsets, dtype=np.int64)
+    deg, offsets64, max_deg = _int64_rows(g)
 
     upper_only = sources is None
     _ix = [None]
@@ -370,6 +410,14 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
         kwork = deg[kuniq] - kskip
         work = deg[mid] - skip
 
+    # Per-source counts and prefixes run over the build's sources: every
+    # vertex in a whole-graph build, the source set's rows otherwise, so a
+    # request's arrays have its size, not the graph's.
+    n_src = n if rows is None else int(rows.shape[0])
+
+    def src_pos(ids):
+        return ids if rows is None else np.searchsorted(rows, ids)
+
     with span("plan.route"):
         if cap is None:
             est = int(work.sum() + kwork.sum())
@@ -377,12 +425,14 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
                               AUTO_CAP_MIN), AUTO_CAP_MAX))
 
         # Per-source slot counts; sources too big for one tile are "huge".
-        w_u = (np.bincount(src, weights=work.astype(np.float64),
-                           minlength=n)
-               + np.bincount(kuniq, weights=kwork.astype(np.float64),
-                             minlength=n)).astype(np.int64)
-        huge_src = np.nonzero(w_u > cap)[0]
-        huge_slots = int(w_u[huge_src].sum())
+        w_u = (np.bincount(src_pos(src), weights=work.astype(np.float64),
+                           minlength=n_src)
+               + np.bincount(src_pos(kuniq),
+                             weights=kwork.astype(np.float64),
+                             minlength=n_src)).astype(np.int64)
+        huge_pos = np.nonzero(w_u > cap)[0]
+        huge_src = huge_pos if rows is None else rows[huge_pos]
+        huge_slots = int(w_u[huge_pos].sum())
         huge_plan = None
         host_src = np.empty(0, dtype=np.int64)
         dev_huge_slots = 0
@@ -393,9 +443,9 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
             not_huge_k = ~np.isin(kuniq, huge_src)
             kuniq, kskip, kwork = (kuniq[not_huge_k], kskip[not_huge_k],
                                    kwork[not_huge_k])
-            huge_sizes = w_u[huge_src]
+            huge_sizes = w_u[huge_pos]
             w_u = w_u.copy()
-            w_u[huge_src] = 0
+            w_u[huge_pos] = 0
             if _allow_huge:
                 # hubs get a sub-plan whose cap holds the biggest one in a
                 # tile; beyond HUGE_DEVICE_MAX they go to host_src
@@ -414,7 +464,7 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
         m1 = src.shape[0] + kuniq.shape[0]
         total_slots = int(work.sum() + kwork.sum())
 
-        deg16 = bool(deg.max(initial=0) < (1 << 16))
+        deg16 = max_deg < (1 << 16)
         w_bits = max(int(max(n - 1, 1)).bit_length(), 1)
         keyed = w_bits + 1 <= 31             # one spare value range for pads
         # The budget bounds the main stream at its padded size plus the hub
@@ -445,7 +495,7 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
         # host-side slot expansion with dead-slot removal (w == u, w ∈ N(u))
         with span("plan.expand"):
             expanded = _native_expand(g, src, mid, skip, int(work.sum()),
-                                      deg16)
+                                      deg16, rows)
             if expanded is not None:
                 kept, sw, su, sudeg, swdeg_k, smid, cnt_u = expanded
             else:
@@ -471,6 +521,8 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
                 smid = deg[np.repeat(mid, work32)[keep_s]].astype(np.int32)
                 kept = int(wv.shape[0])
                 cnt_u = np.bincount(slot_src, minlength=n).astype(np.int64)
+                if rows is not None:
+                    cnt_u = cnt_u[rows]
                 sw = wv.astype(np.int32)
                 su = slot_src.astype(np.int32)
                 if deg16:
@@ -488,7 +540,7 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
             """Pad one slot sub-stream and partition it into tiles of at
             most cap_s slots."""
             kept_s = int(sw_s.shape[0])
-            prefix_s = np.zeros(n + 1, dtype=np.int64)
+            prefix_s = np.zeros(n_src + 1, dtype=np.int64)
             np.cumsum(cnt_u_s, out=prefix_s[1:])
             starts, ends = partition(prefix_s, cap_s)
             s_pad = _pad_bucket(kept_s + cap_s)
@@ -529,8 +581,8 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
                     deg16 = True
                 elif n_hi < kept:
                     lo = ~hi
-                    cnt_hi = np.bincount(su[hi],
-                                         minlength=n).astype(np.int64)
+                    cnt_hi = np.bincount(src_pos(su[hi]),
+                                         minlength=n_src).astype(np.int64)
                     split_hi = (sw[hi], su[hi], sudeg[hi], swdeg_k[hi],
                                 smid[hi], cnt_hi)
                     pair = (sudeg[lo].astype(np.uint32) << np.uint32(16)) \
@@ -579,14 +631,14 @@ def _build_plan(g, min_degree1, cap, pad_tiles_pow2, slot_budget, sources,
                                        real[order], eskip[order])
             ework = deg[emid] - eskip
 
-            row_prefix = np.zeros(n + 1, dtype=np.int64)
+            row_prefix = np.zeros(n_src + 1, dtype=np.int64)
             np.cumsum(w_u, out=row_prefix[1:])
             starts, ends = partition(row_prefix)
             num_tiles = max(len(starts), 1)
             t_pad = _pad_tiles(num_tiles) if pad_tiles_pow2 else num_tiles
 
-            row_edge_start = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum(np.bincount(esrc, minlength=n),
+            row_edge_start = np.zeros(n_src + 1, dtype=np.int64)
+            np.cumsum(np.bincount(src_pos(esrc), minlength=n_src),
                       out=row_edge_start[1:])
             tile_edge_start = np.full(t_pad + 1, m1, dtype=np.int32)
             if starts:

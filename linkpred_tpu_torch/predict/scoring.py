@@ -425,16 +425,16 @@ def _fill_buffer(tile_fn, tile_start, tiles, num_metrics: int, cap: int,
 
 
 def scan_tiles(tile_fn, tile_start, k: int, num_metrics: int, cap: int,
-               *, device) -> TopK:
+               *, device, name: str = "scan.pass") -> TopK:
     """Run ``tile_fn(t_start, t_end) -> (skeys [M, cap], u, v)`` over every
     non-empty tile (a Python loop over the host tile bounds), buffer all
-    lanes, and select the global top k.
+    lanes, and select the global top k; the whole is the span ``name``.
 
     Plans whose buffer would exceed the segment bound select per segment of
     tiles and merge the segments' winners (exact: a global winner is in its
     segment's top k); segments skip the survivor pack, as in the
     reference."""
-    with span("scan.pass"):
+    with span(name):
         t_pad = len(tile_start) - 1
         n_seg, seg = _segments(t_pad, cap, num_metrics, device)
         if n_seg == 1:
@@ -482,15 +482,16 @@ def tile_scorer(stream, *, metric_names, cap: int, n: int, maxf2: int = 0,
 
 
 def score_tiles(stream, tile_start, min_score: float, *, metric_names,
-                k: int, device, **kw) -> TopK:
+                k: int, device, span_name: str = "scan.pass",
+                **kw) -> TopK:
     """Score every tile for each metric in ``metric_names`` in one shared
-    expansion+sort pass; returns TopK of [M, k'] (k' = min(k, lanes)).
-    ``tile_start`` is the plan's host tile bounds; the other keywords are
-    :func:`tile_scorer`'s."""
+    expansion+sort pass, the span ``span_name``; returns TopK of [M, k']
+    (k' = min(k, lanes)).  ``tile_start`` is the plan's host tile bounds;
+    the other keywords are :func:`tile_scorer`'s."""
     tile_fn = tile_scorer(stream, metric_names=metric_names,
                           min_score=min_score, **kw)
     return scan_tiles(tile_fn, tile_start, k, len(metric_names), kw["cap"],
-                      device=device)
+                      device=device, name=span_name)
 
 
 def score_huge_sources_host_multi(g, huge_src, metrics, min_degree1: int,

@@ -5,6 +5,7 @@ reference's starting values; they have not been re-derived on a GPU yet.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -40,10 +41,19 @@ def hbm_bytes(device) -> int:
     device, the reference's 16 GiB default for the CPU."""
     device = torch.device(device)
     if device.type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[1])
+        return _card_bytes(torch.cuda.current_device() if device.index is None
+                           else device.index)
     if device.type == "cpu":
         return _DEFAULT_BYTES
     raise ValueError(f"unsupported device {device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_bytes(index: int) -> int:
+    # A card's total memory never changes, and every plan and pass sizes its
+    # budgets from it: read it once, since each cudaMemGetInfo waits on the
+    # card (about 1 ms a call behind a served request's work).
+    return int(torch.cuda.mem_get_info(index)[1])
 
 
 def free_bytes(device) -> int:

@@ -6,13 +6,15 @@ The reference's observability is wall-clock only.  The port adds:
 
 * **Spans** (:func:`span`): a context manager at each layer boundary of
   the program (``plan.*``, ``api.*``, ``scan.*``, ``tile.*``,
-  ``select.metric``).  Recording is off by default; :func:`enable` turns
-  it on and :func:`drain` returns and clears what was recorded.  A record
-  holds the name, start and end (``time.perf_counter_ns``), its id, its
-  parent's id and a call id: the id of the outermost span open when it
-  started (one ``predict_links`` call, or one ``build_plan`` called
-  directly).  :func:`wall_ns` places a stamp on the wall clock through the
-  anchor pair taken at :func:`enable`.
+  ``select.metric``; a pass's scoring is ``scan.pass``, or ``scan.side``
+  for a wide-degree side plan).  Recording is off by default;
+  :func:`enable` turns it on and :func:`drain` returns and clears what was
+  recorded.  A record holds the name, start and end
+  (``time.perf_counter_ns``), its id, its parent's id and a call id: the
+  id of the outermost span open when it started (one ``predict_links``
+  call, or one ``build_plan`` called directly).  :func:`wall_ns` places a
+  stamp on the wall clock through the anchor pair taken at
+  :func:`enable`.
   The recorder keeps one stack of open spans, for the one thread that
   drives the card.
   While a ``torch.profiler`` session is active, a span also opens

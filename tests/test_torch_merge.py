@@ -350,3 +350,31 @@ def test_memory_check_refuses_a_merge_that_does_not_fit(rng, monkeypatch):
         assert p._device == {}, "uploaded before the check"
     monkeypatch.setattr(api, "free_bytes", lambda d: need["total"])
     assert all(len(r) > 0 for r in call().values())
+
+
+def test_a_cards_total_memory_is_read_once(monkeypatch):
+    """Budgets size from the card's total memory, read from the card once
+    per card and not on every plan and pass; the free memory the check
+    reads stays live."""
+    from linkpred_tpu_torch.utils import device as dev
+
+    reads = []
+
+    def mem_get_info(index):
+        reads.append(index)
+        return (len(reads) << 30, 80 << 30)
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 0)
+    dev._card_bytes.cache_clear()
+    try:
+        assert dev.hbm_bytes("cuda:0") == 80 << 30
+        budgets = [dev.auto_slot_budget("cuda:0"), dev.auto_seg_lanes("cuda:0")]
+        assert budgets == [(1 << 31) - (1 << 22), 1 << 29]   # both capped
+        assert reads == [0]
+        assert dev.hbm_bytes("cuda:1") == 80 << 30 and reads == [0, 1]
+        assert dev.free_bytes("cuda:0") == 3 << 30
+        assert dev.free_bytes("cuda:0") == 4 << 30
+    finally:
+        dev._card_bytes.cache_clear()

@@ -305,3 +305,43 @@ def test_rmat_and_deletion_pipeline():
 def test_planted_partition_graph():
     _assert_graph_equal(synth.planted_partition_graph(8, 32, seed=1),
                         ref_synth.planted_partition_graph(8, 32, seed=1))
+
+
+def test_a_graph_gives_its_int64_rows_once():
+    """Every build on one graph reads the same read-only int64 copies of its
+    degrees and row starts, and its largest degree; the memo lets them go
+    with the graph."""
+    import gc
+
+    _, gp = _hub_graphs()
+    sources = np.asarray(_SOURCE_SETS["hubs"], dtype=np.int64)
+    first = plan._int64_rows(gp.host())
+    plan.build_plan(gp, 4, None, sources=sources, device="cpu")
+    again = plan._int64_rows(gp.host())
+    assert all(a is b for a, b in zip(first[:2], again[:2]))
+    deg, offsets64, max_deg = again
+    for arr, f in ((deg, "degrees"), (offsets64, "offsets")):
+        assert arr.dtype == np.int64 and not arr.flags.writeable
+        assert np.array_equal(arr, np.asarray(getattr(gp, f)))
+    assert max_deg == int(np.asarray(gp.degrees).max())
+    key = id(gp.degrees)
+    assert key in plan._ROWS64
+    del gp, first, again, deg, offsets64
+    gc.collect()
+    assert key not in plan._ROWS64
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_source_plans_in_turn_equal_the_reference(_hubs_on_device,
+                                                  monkeypatch, use_native):
+    """Builds for one source set after another on one graph (the native
+    expansion counts into one buffer a thread) each equal the reference's
+    plan for that set alone."""
+    if not use_native:
+        monkeypatch.setattr(native, "native_lib", lambda: None)
+    gr, gp = _hub_graphs()
+    for kind in ("hubs", "unsorted_dups", "zero_degree", "hubs", "empty"):
+        sources = np.asarray(_SOURCE_SETS[kind], dtype=np.int64)
+        _assert_plan_equal(
+            plan.build_plan(gp, 4, None, sources=sources, device="cpu"),
+            ref_plan.build_plan(gr, 4, None, sources=sources), kind)

@@ -30,7 +30,7 @@ TILES = {"scan.pass", "scan.tile", "tile.gather", "tile.sort", "tile.k1",
          "scan.select", "select.metric"}
 EVERY = (PLAN | API | TILES | {"plan.expand", "plan.emit", "plan.edge_stream",
                                "api.host_hubs", "api.top_per_source",
-                               "scan.merge_segments"})
+                               "scan.merge_segments", "scan.side"})
 
 
 @pytest.fixture(autouse=True)
@@ -229,7 +229,7 @@ def test_spans_in_serving_mode(rng):
 
 
 def test_every_span_named_in_the_module_docs_is_produced(rng, monkeypatch):
-    """The union over the three kinds of call is every span the program
+    """The union over the four kinds of call is every span the program
     has: a span nothing produces, or one produced and not listed, fails."""
     gp = _graph(rng)
     users = np.sort(rng.choice(np.nonzero(gp.degrees > 0)[0], 16,
@@ -239,6 +239,13 @@ def test_every_span_named_in_the_module_docs_is_produced(rng, monkeypatch):
     monkeypatch.setattr(scoring, "SEG_LANES", 2048)
     _, s1 = _recorded(lambda: lt.predict_links(
         gp, "cn", min_degree1=0, cap=256, device="cpu", options=opts))
+    # a request whose plan has a wide-degree side plan
+    from test_torch_serve_side import D1, USERS, port_hub_graph
+
+    _, side = _recorded(lambda: lt.predict_links(
+        port_hub_graph(), "cn", min_degree1=D1, sources=USERS, device="cpu",
+        options=opts))
+    assert "scan.side" in _names(side)
     monkeypatch.setattr(plan, "SLOT_BUDGET", 0)
     monkeypatch.setattr(plan, "HUGE_DEVICE_MAX", 1)
     _, s2 = _recorded(lambda: lt.predict_links(
@@ -246,7 +253,7 @@ def test_every_span_named_in_the_module_docs_is_produced(rng, monkeypatch):
     _, s3 = _recorded(lambda: lt.top_per_source(lt.predict_links(
         gp, "cn", min_degree1=0, sources=users, device="cpu",
         options=opts), 3))
-    for spans in (s1, s2, s3):
+    for spans in (s1, side, s2, s3):
         seen |= _names(spans)
     assert seen == EVERY
 
